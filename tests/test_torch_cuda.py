@@ -1,0 +1,71 @@
+"""Tests that need a CUDA device: the port's kernels against their plain
+versions on the card, and the engine on the card against the engine on the
+CPU. They skip on machines without a GPU. This file imports no JAX, so it
+also runs where only the port is installed:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from qpgesture_tpu_torch.core.config import MATCH_PRESETS
+from qpgesture_tpu_torch.match.database import (stage_database,
+                                                stage_test_audio,
+                                                stage_test_context)
+from qpgesture_tpu_torch.match.engine import CodeKNNEngine
+from qpgesture_tpu_torch.ops import levenshtein_cuda
+
+from fixtures import make_fixture
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("Q,N,vocab", [(48, 26624, 102400),
+                                       (48, 26624 + 37, 102400),
+                                       (7, 1000, 4)])
+def test_levenshtein_kernel_matches_plain(cuda, Q, N, vocab):
+    rng = np.random.RandomState(N)
+    a = torch.from_numpy(rng.randint(0, vocab, (Q, 11)).astype(np.int32))
+    b = torch.from_numpy(rng.randint(0, vocab, (N, 11)).astype(np.int32))
+    b[3] = a[0]
+    a_d, b_d = a.to(cuda), b.to(cuda)
+    before = levenshtein_cuda.launches
+    got = levenshtein_cuda.levenshtein_matrix(a_d, b_d)
+    torch.cuda.synchronize()
+    assert levenshtein_cuda.launches == before + 1
+    assert torch.equal(got, levenshtein_cuda.levenshtein_matrix_plain(a_d,
+                                                                      b_d))
+    assert torch.equal(got.cpu(), levenshtein_cuda.levenshtein_matrix(a, b))
+
+
+def test_levenshtein_kernel_rejects_unbuilt_length(cuda):
+    a = torch.zeros((2, 10), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="no kernel instantiation"):
+        levenshtein_cuda.levenshtein_matrix(a, a)
+
+
+@pytest.mark.parametrize("preset", ["wavvq", "shipped", "mfcc"])
+def test_engine_on_card_matches_cpu(cuda, preset):
+    rng = np.random.RandomState(12)
+    fx = make_fixture(rng, n_seq=6, n_test=3, codebook=64)
+    cfg = dataclasses.replace(MATCH_PRESETS[preset], codebook_size=64)
+    db = stage_database(cfg, fx["bundle"], fx["codes"], fx["signature"],
+                        wavlm=fx["wavlm"], wavvq=fx["wavvq"])
+    ta = stage_test_audio(cfg, db, test_bundle=fx["test_bundle"],
+                          wavlm=fx["test_wavlm"], wavvq=fx["test_wavvq"])
+    tc = stage_test_context(db, fx["test_context"]) if cfg.use_txt else None
+    want = CodeKNNEngine(cfg, db, device="cpu").predict(ta, tc)
+    got = CodeKNNEngine(cfg, db, device=cuda).predict(ta, tc)
+    np.testing.assert_array_equal(got.codes, want.codes)
+    if want.phases is not None:
+        np.testing.assert_array_equal(got.phases, want.phases)

@@ -1,0 +1,65 @@
+"""The port stands alone: importing every module pulls in neither JAX nor
+the JAX package, and the entry points refuse to run without a GPU unless
+the caller asks for the CPU."""
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import qpgesture_tpu_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        qpgesture_tpu_torch.__path__, "qpgesture_tpu_torch.")
+        if m.name != "qpgesture_tpu_torch.__main__")
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    mods = _port_modules()
+    assert "qpgesture_tpu_torch.ops.levenshtein_cuda" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k in ('jax', 'flax',"
+        " 'jaxlib', 'qpgesture_tpu') or k.startswith(('jax.', 'flax.',"
+        " 'jaxlib.', 'qpgesture_tpu.')))\n"
+        "print('BAD', bad)\n"
+        "import torch\n"
+        "assert not torch.backends.cuda.matmul.allow_tf32\n"
+        "assert not torch.backends.cudnn.allow_tf32\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_entry_points_default_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the cuda default is valid here")
+    from qpgesture_tpu_torch.cli import main
+    from qpgesture_tpu_torch.core.config import MatchConfig, VQVAEConfig
+    from qpgesture_tpu_torch.match.engine import CodeKNNEngine
+    from qpgesture_tpu_torch.models.vqvae import VQVAE
+    from qpgesture_tpu_torch.motion.fk import forward_kinematics
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        VQVAE(VQVAEConfig(width=8, emb_width=8, l_bins=8, depth=1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CodeKNNEngine(MatchConfig(), db=None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        forward_kinematics(data=None)
+    codes = str(tmp_path / "result.npz")
+    np.savez(codes, knn_pred=np.zeros((1, 30), np.int32))
+    torch.save({}, str(tmp_path / "x.bin"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["decode", "--result", codes, "--checkpoint",
+              str(tmp_path / "x.bin"), "--pipeline", str(tmp_path / "p")])
