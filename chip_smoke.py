@@ -3,11 +3,23 @@
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Builds every CUDA kernel of the port from the sources in the checkout,
-holds each against its plain PyTorch version on the card, drives the main
-serving path (wavvq preset, full-width default VQ-VAE, J=1024 database,
-3 requests of 6 windows = 24 s clips) and the match -> decode CLI, and
-prints one line per phase. The last three lines are the card's name and
+Builds every CUDA kernel of the port from the sources in the checkout (one
+``nvcc`` per source, all at once), holds each against its plain PyTorch
+version on the card, and drives the port's paths, each with the kernel
+counts set to 0 just before it and read just after:
+
+  phases 3-5   K1 checks and times; host-staged wavvq serving (J=1024
+               database, 3 requests of 6 windows = 24 s clips) and the
+               match -> decode CLI;
+  phase 6      K2 checks at the WavLM shapes, K2 / plain / SDPA times;
+  phase 7      raw-wav serving of the shipped preset at full WavLM-Large
+               width (24 layers, random weights), 3 requests of 6 int16
+               windows, against host-staged serving, the eager attention
+               and the CPU port;
+  phase 8      raw-wav serving of the wavvq preset (random vq-wav2vec);
+  phase 9      the ``generate`` CLI, wav file -> BVH (a 2-layer WavLM).
+
+It prints one line per check. The last three lines are the card's name and
 power limit, one JSON object with every kernel's launches, error and
 times, and ``{"ok": true, "device": {...}}``. Any failure exits nonzero
 before that last line; so does a machine without a CUDA device, and a
@@ -32,13 +44,25 @@ SEED = 20260
 J = 1024           # database sequences (tests/fixtures.py shapes)
 W = 6              # windows per request: a 24 s clip
 N_REQUESTS = 3
+J_CLI = 64         # database of the generate CLI phase (files on disk)
 POSE_ATOL = 1e-3   # card vs CPU poses: float32 decode, other sum orders
+# K2 against its plain version: float32 differs by summation order; in
+# bfloat16 the kernel rounds p against a running (per key tile) max and the
+# plain version against the row max, one bfloat16 rounding (2^-8) apart.
+K2_ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# WavLM-Large features (unit scale after the last LayerNorm): float32 on
+# both sides, other summation orders through 24 layers.
+FEAT_ATOL = 2e-3
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+F32_FLOPS = 67e12           # float32 outside the tensor cores (TF32 off)
+BF16_TC_FLOPS = 989e12      # bfloat16 tensor cores, dense
 # 32-bit ALU operations an SM issues per clock: 4 schedulers x 32 lanes,
 # the rate behind the data sheet's 67 TFLOP/s float32 (an FMA counted as
 # two). K1 runs above the 64/clock of the integer-only units on the
 # whole-corpus shape, so this is the peak its operations are held to.
 ALU_OPS_PER_SM_CLOCK = 128
+# device_ms's spin ahead of the timed calls: ~50 ms at the H100's 1980 MHz
+SLEEP_CYCLES = 100_000_000
 
 
 def log(msg: str) -> None:
@@ -70,6 +94,60 @@ def median_ms(fn, n: int, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, n: int, reps: int = 5, warmup: int = 3) -> float:
+    """Device time per call of fn: median over reps of the CUDA-event time
+    of n calls, divided by n. The calls are queued behind a spinning kernel
+    (torch.cuda._sleep), so the card runs them back to back however slowly
+    the host enqueues them; median_ms of one call also counts the host's
+    time between its events. If the card finishes spinning before the last
+    call is queued, the spin doubles and the repetition runs again."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    cycles, times = SLEEP_CYCLES, []
+    while len(times) < reps:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        caught_up = start.query()
+        end.synchronize()
+        if caught_up:
+            if cycles >= 16 * SLEEP_CYCLES:
+                raise SystemExit("device_ms: the card caught up with the "
+                                 "host behind an 800 ms spin: the timed "
+                                 "call synchronises")
+            cycles *= 2
+            continue
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def log_profile(phase: str, fn) -> dict:
+    """Profile one call of fn: device busy time, idle share, top kernels.
+    Returns {kernel name: (total device us, count)}."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    log(f"{phase} profile: device busy {busy_us / 1e3:.3f} ms of "
+        f"{wall_us / 1e3:.3f} ms wall (idle share "
+        f"{1 - busy_us / wall_us:.3f}); top kernels:")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"    {e.self_device_time_total / 1e3:9.4f} ms x{e.count:5d} "
+            f"{e.key[:90]}")
+    return {e.key: (e.self_device_time_total, e.count) for e in kernels}
 
 
 def skeleton_bvh_text(rng, n_frames: int = 48, fps: int = 120) -> str:
@@ -162,6 +240,357 @@ def lev_bound(Q: int, N: int, L: int, sm_count: int, sm_clock_hz: float):
         (bytes_ms, "bytes")
 
 
+def flash_bound(B: int, H: int, T: int, hd: int, in_bytes: int,
+                gated: bool, flops_per_s: float):
+    """(bound_ms, bound_by) for gated attention: the larger of its
+    4*B*H*T^2*hd operations (two products) over the card's rate for the
+    input type, and its bytes (q, k, v and the gate read once in the input
+    type, the bias read once, the float32 output written once) over HBM
+    bandwidth."""
+    ops_ms = 1e3 * 4 * B * H * T * T * hd / flops_per_s
+    n_bytes = (in_bytes * (3 * B * H * T * hd + H * T * T
+                           + (B * H * T if gated else 0))
+               + 4 * B * H * T * hd)
+    bytes_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else \
+        (bytes_ms, "bytes")
+
+
+def phase_k2(dev):
+    """K2 against its plain version at the WavLM shapes; then its time,
+    the plain version's and SDPA's at the main-path shape. Returns the
+    kernels-line fields measured here."""
+    import torch
+    import torch.nn.functional as F
+    from qpgesture_tpu_torch.ops import flash_attention_cuda as K2
+
+    gen = torch.Generator().manual_seed(SEED)
+
+    def inputs(B, H, T, hd, gated):
+        q, k, v = (torch.randn(B, H, T, hd, generator=gen).to(dev)
+                   for _ in range(3))
+        bias = torch.randn(H, T, T, generator=gen).to(dev)
+        gate = (1.0 + torch.rand(B, H, T, generator=gen)).to(dev) \
+            if gated else None
+        return q, k, v, bias, gate
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("main path", 6, 16, 199, 64, True, f32),
+             ("no gate", 6, 16, 199, 64, False, f32),
+             ("bfloat16", 6, 16, 199, 64, True, bf16),
+             ("ragged T=37", 6, 16, 37, 64, True, f32),
+             ("whole clip T=1200", 1, 16, 1200, 64, True, f32)]
+    max_err = 0.0
+    kept = {}
+    for name, B, H, T, hd, gated, dtype in cases:
+        x = inputs(B, H, T, hd, gated)
+        got = K2.gated_flash_attention(*x, sm_scale=hd ** -0.5,
+                                       kernel_dtype=dtype)
+        torch.cuda.synchronize()
+        want = K2.gated_attention_plain(*x, sm_scale=hd ** -0.5,
+                                        kernel_dtype=dtype)
+        err = float((got - want).abs().max())
+        tol = K2_ATOL[str(dtype).split(".")[-1]]
+        log(f"phase 6 K2 {name}: B={B} H={H} T={T} hd={hd} {dtype} "
+            f"max_abs_err={err:.3e} (tol {tol})")
+        if not err <= tol:
+            raise SystemExit(f"K2 disagrees with its plain version: {name}")
+        if dtype == f32:
+            max_err = max(max_err, err)
+        kept[name] = x
+
+    scale = 64 ** -0.5
+    q, k, v, bias, gate = kept["main path"]
+    # the library yardstick: one SDPA call on the same float32 inputs,
+    # with q pre-scaled and the gated bias materialised as its mask outside
+    # the timed call (measured only; the port never calls it)
+    qs, mask = q * scale, gate[..., None] * bias[None]
+    sdpa = F.scaled_dot_product_attention(qs, k, v, attn_mask=mask,
+                                          scale=1.0)
+    sdpa_err = float((sdpa - K2.gated_attention_plain(
+        q, k, v, bias, gate, sm_scale=scale)).abs().max())
+    calls = {
+        "kernel": lambda: K2.gated_flash_attention(q, k, v, bias, gate,
+                                                   sm_scale=scale),
+        "plain": lambda: K2.gated_attention_plain(q, k, v, bias, gate,
+                                                  sm_scale=scale),
+        "library": lambda: F.scaled_dot_product_attention(
+            qs, k, v, attn_mask=mask, scale=1.0),
+    }
+    ms = {name: device_ms(fn, 20) for name, fn in calls.items()}
+    call_ms = {name: median_ms(fn, 20) for name, fn in calls.items()}
+    bound_ms, bound_by = flash_bound(6, 16, 199, 64, 4, True, F32_FLOPS)
+    log(f"phase 6 K2 times at B=6 H=16 T=199 hd=64 float32: "
+        f"kernel_ms={ms['kernel']:.5f} plain_ms={ms['plain']:.5f} "
+        f"library_ms={ms['library']:.5f} (SDPA, max_abs_err vs plain "
+        f"{sdpa_err:.3e}) bound_ms={bound_ms:.5f} ({bound_by}); one call "
+        f"between two events, host time included: kernel "
+        f"{call_ms['kernel']:.5f} plain {call_ms['plain']:.5f} library "
+        f"{call_ms['library']:.5f}")
+    for name, dtype, rate, in_bytes in (
+            ("bfloat16", bf16, BF16_TC_FLOPS, 2),
+            ("whole clip T=1200", f32, F32_FLOPS, 4)):
+        x = kept[name]
+        B, H, T, hd = x[0].shape
+        t_ms = device_ms(lambda: K2.gated_flash_attention(
+            *x, sm_scale=scale, kernel_dtype=dtype), 20)
+        b_ms, b_by = flash_bound(B, H, T, hd, in_bytes, True, rate)
+        log(f"phase 6 K2 times at B={B} H={H} T={T} hd={hd} {dtype}: "
+            f"kernel_ms={t_ms:.5f} bound_ms={b_ms:.5f} ({b_by})")
+    return dict(max_abs_err=max_err, ms=ms["kernel"], plain_ms=ms["plain"],
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=ms["library"])
+
+
+def phase_rawwav_shipped(dev, rng, bundle, codes, signature, vqvae_gpu,
+                         vqvae_cpu, data_mean, data_std):
+    """Raw-wav serving of the shipped preset at full WavLM-Large width.
+    Returns (K2 launches of the main run, the CPU encoder, its wavlm
+    database features)."""
+    import numpy as np
+    import torch
+    from qpgesture_tpu_torch.core.config import MATCH_PRESETS
+    from qpgesture_tpu_torch.match import engine as eng
+    from qpgesture_tpu_torch.match.database import (stage_database,
+                                                    stage_test_audio,
+                                                    stage_test_context)
+    from qpgesture_tpu_torch.models.wavlm import WavLM, WavLMConfig
+    from qpgesture_tpu_torch.ops import flash_attention_cuda as K2
+    from qpgesture_tpu_torch.ops import levenshtein_cuda as K1
+    from qpgesture_tpu_torch.serve import RawWavServer, ServingPipeline
+
+    t0 = time.time()
+    wcfg = WavLMConfig()
+    torch.manual_seed(SEED)
+    enc_cpu = WavLM(wcfg, device="cpu")
+    with torch.no_grad():   # a gate that is not ~constant
+        for name, p in enc_cpu.named_parameters():
+            if "grep_linear" in name:
+                p.mul_(8.0)
+    enc_gpu = copy.deepcopy(enc_cpu).to(dev)
+    n_params = sum(p.numel() for p in enc_cpu.parameters())
+    feats_db = np.random.default_rng(SEED).standard_normal(
+        (J, 199, wcfg.encoder_embed_dim), dtype=np.float32)
+    cfg = MATCH_PRESETS["shipped"]
+    db = stage_database(cfg, bundle, codes, signature, wavlm=feats_db)
+    engine = eng.CodeKNNEngine(cfg, db, device=dev)
+    server = RawWavServer(engine, vqvae_gpu, enc_gpu, data_mean, data_std)
+    wavs = [(rng.randn(W, 64000) * 3000).astype(np.int16)
+            for _ in range(N_REQUESTS + 1)]
+    ctxs = [rng.randn(W, 30, 1, 384).astype(np.float32)
+            for _ in range(N_REQUESTS + 1)]
+    torch.cuda.synchronize()
+    log(f"phase 7 set-up: WavLM-Large {n_params} parameters, {wcfg.encoder_layers}"
+        f" layers, D={wcfg.encoder_embed_dim}; wavlm database "
+        f"{feats_db.nbytes / 1e6:.0f} MB on the host, "
+        f"{db.aud_feat.nbytes / 1e6:.0f} MB staged; {time.time() - t0:.1f} s")
+
+    def serve(r):
+        return server.serve(wavs[r], ctxs[r], init_code=0,
+                            rng=np.random.RandomState(cfg.seed))
+
+    serve(N_REQUESTS)                   # warm-up request
+    torch.cuda.synchronize()
+    K1.launches = K2.launches = 0
+    served, req_ms = [], []
+    for r in range(N_REQUESTS):
+        before = K2.launches
+        t0 = time.perf_counter()
+        served.append(serve(r))          # returns host arrays: synced
+        req_ms.append(1e3 * (time.perf_counter() - t0))
+        if K2.launches - before != wcfg.encoder_layers:
+            raise SystemExit(f"request {r} launched K2 "
+                             f"{K2.launches - before} times, not "
+                             f"{wcfg.encoder_layers}")
+    k2_launches = K2.launches
+    log(f"phase 7 serve p50 {statistics.median(req_ms):.3f} ms over "
+        f"{N_REQUESTS} requests (W={W}, J={J}); K2 launches {k2_launches} "
+        f"({wcfg.encoder_layers} per request), K1 launches {K1.launches}")
+
+    pipe = ServingPipeline(engine, vqvae_gpu, data_mean, data_std)
+    for r, (codes_r, poses_r) in enumerate(served):
+        feats = server.encode(wavs[r])
+        again = server.encode(wavs[r])
+        ta = stage_test_audio(cfg, db, wavlm=feats.cpu().numpy())
+        tc = stage_test_context(db, ctxs[r])
+        want, _ = pipe.serve(ta, tc, init_code=0,
+                             rng=np.random.RandomState(cfg.seed))
+        if codes_r.shape != (W, 30) or poses_r.shape != (W * 240, 135) \
+                or not np.isfinite(poses_r).all():
+            raise SystemExit(f"request {r}: shapes {codes_r.shape} "
+                             f"{poses_r.shape} or non-finite poses")
+        if not np.array_equal(codes_r, want):
+            raise SystemExit(f"request {r}: raw-wav codes differ from "
+                             f"host-staged serving of the card's features")
+        log(f"phase 7 request {r}: {req_ms[r]:.3f} ms, codes == host-staged "
+            f"serving on the card's features; features {tuple(feats.shape)}"
+            f", bit-equal across two encodes: {torch.equal(feats, again)}")
+
+    # the same card weights with the eager attention
+    eager = WavLM(dataclasses.replace(wcfg, attn_impl="eager"), device=dev)
+    eager.load_state_dict(enc_gpu.state_dict())
+    x = torch.as_tensor(wavs[0], device=dev).float() / 32768.0
+    feats_flash = enc_gpu(x)
+    before = K2.launches
+    feats_eager = eager(x)
+    if K2.launches != before:
+        raise SystemExit("the eager encoder launched K2")
+    err = float((feats_flash - feats_eager).abs().max())
+    log(f"phase 7 card features K2 vs eager attention: max_abs_err "
+        f"{err:.3e} (tol {FEAT_ATOL}), feature scale "
+        f"{float(feats_eager.abs().max()):.3f}")
+    if not err <= FEAT_ATOL:
+        raise SystemExit("K2 features differ from the eager attention's")
+    del eager
+
+    # one request against the CPU port (its encoder, staging and engine)
+    t0 = time.time()
+    ref_engine = eng.CodeKNNEngine(cfg, db, device="cpu")
+    ref = RawWavServer(ref_engine, vqvae_cpu, enc_cpu, data_mean, data_std)
+    feats_cpu = ref.encode(wavs[0])
+    err = float((feats_flash.cpu() - feats_cpu).abs().max())
+    # RawWavServer.serve's own steps, with the features kept for the check
+    codes_cpu, _ = ServingPipeline(ref_engine, vqvae_cpu).serve(
+        *ref.stage(feats_cpu, ctxs[0]), init_code=0,
+        rng=np.random.RandomState(cfg.seed))
+    same = codes_cpu == served[0][0]
+    log(f"phase 7 card vs CPU port, request 0: features max_abs_err "
+        f"{err:.3e} (tol {FEAT_ATOL}); equal codes {int(same.sum())}/"
+        f"{same.size} (share {same.mean():.4f}); differing (window, slot): "
+        f"{[tuple(map(int, i)) for i in np.argwhere(~same)]}; "
+        f"{time.time() - t0:.1f} s")
+    if not err <= FEAT_ATOL:
+        raise SystemExit("card features differ from the CPU port's")
+
+    # where the time goes in one request (not counted as launches)
+    enc0 = server.encode(wavs[0])
+    ta0, tc0 = server.stage(enc0, ctxs[0])
+    zeros = np.zeros((8, 16), np.float32)
+    codes0 = torch.as_tensor(served[0][0].reshape(1, -1), device=dev)
+    encoder_ms = median_ms(lambda: server.encode(wavs[0]), 5, warmup=1)
+    stage_ms = median_ms(lambda: server.stage(enc0, ctxs[0]), 10)
+    match_ms = median_ms(lambda: engine.predict_device(
+        ta0, tc0, init_code=0, init_phase=zeros), 5, warmup=1)
+    decode_ms = median_ms(lambda: vqvae_gpu.decode(codes0), 10)
+    log(f"phase 7 stage times: encoder_ms={encoder_ms:.4f} "
+        f"stage_ms={stage_ms:.4f} match_ms={match_ms:.4f} "
+        f"decode_ms={decode_ms:.4f}")
+    kernels = log_profile("phase 7", lambda: serve(0))
+    k2 = [(us, n) for key, (us, n) in kernels.items()
+          if "gated_flash_kernel" in key]
+    if not k2:
+        raise SystemExit("the profiled raw-wav request shows no K2 kernel")
+    log(f"phase 7 K2 in the profiled request: {k2[0][1]} launches, "
+        f"{k2[0][0] / k2[0][1] / 1e3:.5f} ms per launch")
+    return k2_launches, enc_cpu, feats_db
+
+
+def phase_rawwav_wavvq(dev, rng, serving, db, cfg):
+    """Raw-wav serving of the wavvq preset with a random vq-wav2vec."""
+    import numpy as np
+    import torch
+    from qpgesture_tpu_torch.match.database import (stage_test_audio,
+                                                    stage_test_context)
+    from qpgesture_tpu_torch.models.vq_wav2vec import VQWav2Vec
+    from qpgesture_tpu_torch.ops import flash_attention_cuda as K2
+    from qpgesture_tpu_torch.ops import levenshtein_cuda as K1
+    from qpgesture_tpu_torch.serve import RawWavServer
+
+    torch.manual_seed(SEED + 1)
+    encoder = VQWav2Vec(device=dev)
+    server = RawWavServer(serving.engine, serving.model, encoder,
+                          serving.data_mean, serving.data_std)
+    wavs = [(rng.randn(W, 64000) * 3000).astype(np.int16)
+            for _ in range(N_REQUESTS + 1)]
+    ctxs = [rng.randn(W, 30, 1, 384).astype(np.float32)
+            for _ in range(N_REQUESTS + 1)]
+
+    def serve(r):
+        return server.serve(wavs[r], ctxs[r], init_code=0,
+                            rng=np.random.RandomState(cfg.seed))
+
+    serve(N_REQUESTS)                   # warm-up request
+    torch.cuda.synchronize()
+    K1.launches = K2.launches = 0
+    served, req_ms = [], []
+    for r in range(N_REQUESTS):
+        before = K1.launches
+        t0 = time.perf_counter()
+        served.append(serve(r))
+        req_ms.append(1e3 * (time.perf_counter() - t0))
+        if K1.launches <= before:
+            raise SystemExit(f"wavvq raw-wav request {r} did not launch K1")
+    k1_launches = K1.launches
+    for r, (codes_r, _) in enumerate(served):
+        enc = server.encode(wavs[r]).cpu().numpy()
+        want, _ = serving.serve(stage_test_audio(cfg, db, wavvq=enc),
+                                stage_test_context(db, ctxs[r]),
+                                init_code=0,
+                                rng=np.random.RandomState(cfg.seed))
+        if enc.shape != (W, 398, 2) or not np.array_equal(codes_r, want):
+            raise SystemExit(f"wavvq raw-wav request {r}: codes differ from "
+                             f"host-staged serving of the card's codes")
+    encoder_ms = median_ms(lambda: server.encode(wavs[0]), 10)
+    log(f"phase 8 wavvq raw-wav serve p50 {statistics.median(req_ms):.3f} "
+        f"ms over {N_REQUESTS} requests; encoder_ms={encoder_ms:.4f}; codes"
+        f" == host-staged serving of the card's vq-wav2vec codes; K1 "
+        f"launches {k1_launches}, K2 launches {K2.launches}")
+
+
+def phase_generate(rng, bundle, codes, signature, feats_db, enc_cpu,
+                   vqvae_cpu):
+    """generate --preset shipped, wav file -> BVH, on the default device
+    (cuda). The WavLM checkpoint keeps 2 of WavLM-Large's 24 layers; the
+    database keeps J_CLI of the J sequences."""
+    import numpy as np
+    import torch
+    from qpgesture_tpu_torch.cli import main as cli
+    from qpgesture_tpu_torch.core.schemas import save_codes, save_wavlm
+    from qpgesture_tpu_torch.motion.bvh import parse_bvh
+    from qpgesture_tpu_torch.motion.pipeline import MotionPipeline
+    from qpgesture_tpu_torch.pipelines.audio_prep import write_wav
+
+    layers = 2
+    cfg = dataclasses.replace(enc_cpu.cfg, encoder_layers=layers)
+    sd = {k: v for k, v in enc_cpu.state_dict().items()
+          if not k.startswith("encoder.layers.")
+          or int(k.split(".")[2]) < layers}
+    with tempfile.TemporaryDirectory() as tmp:
+        p = lambda name: os.path.join(tmp, name)
+        t0 = time.time()
+        write_wav(p("speech.wav"), rng.randn(24 * 16000) * 0.1, 16000)
+        torch.save({"cfg": {k: v for k, v in dataclasses.asdict(cfg).items()
+                            if k != "conv_feature_layers"},
+                    "model": sd}, p("wavlm.pt"))
+        dataclasses.replace(bundle, context=bundle.context[:J_CLI],
+                            phase=bundle.phase[:J_CLI]).save(p("db.npz"))
+        save_codes(p("codes.npz"), codes[:J_CLI])
+        signature.save(p("code.npz"))
+        save_wavlm(p("wavlm.npz"), feats_db[:J_CLI])
+        torch.save({"model_dict": vqvae_cpu.state_dict()}, p("vqvae.bin"))
+        pipe = MotionPipeline(fps=60).fit(parse_bvh(skeleton_bvh_text(rng)))
+        with open(p("pipeline.json"), "w") as f:
+            f.write(pipe.to_json())
+        t1 = time.time()
+        cli(["generate", "--wav", p("speech.wav"),
+             "--train-database", p("db.npz"),
+             "--train-codebook", p("codes.npz"),
+             "--codebook-signature", p("code.npz"),
+             "--train-wavlm", p("wavlm.npz"),
+             "--wavlm-checkpoint", p("wavlm.pt"),
+             "--vqvae-checkpoint", p("vqvae.bin"),
+             "--pipeline", p("pipeline.json"), "--preset", "shipped",
+             "--out", p("out"), "--prefix", "smoke"])
+        bvh = parse_bvh(p(os.path.join("out", "smoke_generated.bvh")))
+        if bvh.values.shape != (W * 240, len(bvh.channel_names)) or \
+                not np.isfinite(bvh.values).all():
+            raise SystemExit(f"generate BVH {bvh.values.shape}")
+        log(f"phase 9 generate --preset shipped: 24 s wav -> BVH "
+            f"{bvh.values.shape} parsed back; {layers}-layer WavLM "
+            f"checkpoint, J={J_CLI} database; files {t1 - t0:.1f} s, "
+            f"command {time.time() - t1:.1f} s")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -192,13 +621,16 @@ def main() -> int:
                                                     stage_test_audio,
                                                     stage_test_context)
     from qpgesture_tpu_torch.models.vqvae import VQVAE
+    from qpgesture_tpu_torch.ops import cuda_build
+    from qpgesture_tpu_torch.ops import flash_attention_cuda as K2
     from qpgesture_tpu_torch.ops import levenshtein_cuda as K1
     from qpgesture_tpu_torch.serve import ServingPipeline
 
-    # -- phase 2: build ----------------------------------------------------
+    # -- phase 2: build, one nvcc per source, all at once -------------------
     t0 = time.time()
-    K1.build()
-    log(f"phase 2 build: levenshtein.cu {time.time() - t0:.2f} s")
+    cuda_build.build_all([K1.SOURCE, K2.SOURCE])
+    log(f"phase 2 build: {K1.SOURCE} + {K2.SOURCE} "
+        f"{time.time() - t0:.2f} s")
 
     rng = np.random.RandomState(SEED)
     bundle, codes, signature, wavvq, clips = make_data(rng)
@@ -246,21 +678,29 @@ def main() -> int:
         if not torch.equal(got, want):
             raise SystemExit(f"K1 disagrees with its plain version: {name}")
     Q, N = q_main.shape[0], b_main.shape[0]
-    kernel_ms = median_ms(lambda: K1.levenshtein_matrix(q_main, b_main), 50)
+    kernel_ms = device_ms(lambda: K1.levenshtein_matrix(q_main, b_main), 50)
+    # ~730 elementwise launches per call: n calls queued behind device_ms's
+    # spin could fill the launch queue, so it is timed call by call (host
+    # time included)
     plain_ms = median_ms(lambda: K1.levenshtein_matrix_plain(q_main, b_main),
                          5, warmup=1)
+    kernel_call_ms = median_ms(lambda: K1.levenshtein_matrix(q_main, b_main),
+                               50)
     bound_ms, bound_by = lev_bound(Q, N, 11, props.multi_processor_count,
                                    sm_clock_hz)
     log(f"phase 3 K1 times at Q={Q} N={N}: kernel_ms={kernel_ms:.5f} "
-        f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by})")
+        f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}); "
+        f"one kernel call between two events, host time included: "
+        f"{kernel_call_ms:.5f}")
     b_corpus = cases[-1][2]
-    corpus_ms = median_ms(lambda: K1.levenshtein_matrix(q_main, b_corpus), 20)
+    corpus_ms = device_ms(lambda: K1.levenshtein_matrix(q_main, b_corpus), 20)
     corpus_bound, _ = lev_bound(Q, b_corpus.shape[0], 11,
                                 props.multi_processor_count, sm_clock_hz)
     log(f"phase 3 K1 times at Q={Q} N={b_corpus.shape[0]}: "
         f"kernel_ms={corpus_ms:.5f} bound_ms={corpus_bound:.5f}")
+    del cases, b_corpus
 
-    # -- phase 4: main path ------------------------------------------------
+    # -- phase 4: host-staged wavvq serving ----------------------------------
     vq_cfg = VQVAEConfig()
     torch.manual_seed(SEED)
     model_cpu = VQVAE(vq_cfg, device="cpu")
@@ -280,7 +720,7 @@ def main() -> int:
     serving.serve(*requests[-1])            # warm-up request
     torch.cuda.synchronize()
 
-    K1.launches = 0
+    K1.launches = K2.launches = 0
     served, req_ms = [], []
     for r in range(N_REQUESTS):
         before = K1.launches
@@ -332,22 +772,7 @@ def main() -> int:
     decode_ms = median_ms(lambda: model_gpu.decode(codes_flat), 10)
     log(f"phase 4 stage times: tables_ms={tables_ms:.4f} "
         f"scan_ms={scan_ms:.4f} decode_ms={decode_ms:.4f}")
-
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        serving.serve(*requests[0])
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    log(f"phase 4 profile: device busy {busy_us / 1e3:.3f} ms of "
-        f"{wall_us / 1e3:.3f} ms wall (idle share "
-        f"{1 - busy_us / wall_us:.3f}); top kernels:")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"    {e.self_device_time_total / 1e3:9.4f} ms x{e.count:5d} "
-            f"{e.key[:90]}")
+    log_profile("phase 4", lambda: serving.serve(*requests[0]))
 
     # -- phase 5: match -> decode CLI --------------------------------------
     from qpgesture_tpu_torch.cli import main as cli
@@ -393,7 +818,22 @@ def main() -> int:
         log(f"phase 5 CLI match -> decode: result {result.shape}, BVH "
             f"{bvh.values.shape} parsed back, {time.time() - t0:.2f} s")
 
-    # -- phase 6: the kernels line and the result --------------------------
+    # -- phase 6: K2 against its plain version on the card ------------------
+    k2_line = phase_k2(dev)
+
+    # -- phase 7: raw-wav serving, shipped preset, WavLM-Large --------------
+    k2_launches, enc_cpu, feats_db = phase_rawwav_shipped(
+        dev, rng, bundle, codes, signature, model_gpu, model_cpu,
+        data_mean, data_std)
+
+    # -- phase 8: raw-wav serving, wavvq preset -----------------------------
+    phase_rawwav_wavvq(dev, rng, serving, db, cfg)
+
+    # -- phase 9: generate CLI ----------------------------------------------
+    phase_generate(rng, bundle, codes, signature, feats_db, enc_cpu,
+                   model_cpu)
+
+    # -- phase 10: the kernels line and the result --------------------------
     kernels_line = {"kernels": [{
         "name": "levenshtein_matrix",
         "route": "cuda",
@@ -406,6 +846,13 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+    }, {
+        "name": "gated_flash_attention",
+        "route": "cuda",
+        "source": "qpgesture_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "qpgesture_tpu/ops/flash_attention.py:106",
+        "launches": k2_launches,
+        **k2_line,
     }]}
     log(f"total {time.time() - t_start:.1f} s")
     print(smi)

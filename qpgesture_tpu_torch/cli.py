@@ -3,8 +3,9 @@
 Subcommands mirror the reference package's entry points:
   match       GestureKNN.sh / GestureKNN.py main_codebook  -> result.npz
   decode      VisualizeCodebook.py --stage inference       -> BVH (+ npy)
+  generate    wav -> encoder -> match -> decode            -> BVH (+ npy)
 
-Both take the reference package's flags plus ``--device`` (default
+All take the reference package's flags plus ``--device`` (default
 ``cuda``; ``cpu`` runs the plain PyTorch paths).
 """
 from __future__ import annotations
@@ -108,6 +109,103 @@ def cmd_decode(args):
     print(f"wrote {bvh_path}" + (f" and {npy_path}" if npy_path else ""))
 
 
+def cmd_generate(args):
+    """Wav in, BVH out: the product path in one command (the reference's
+    demo wrapper, Speech2GestureMatching/inference.py:19-82, plus decode).
+    Window the audio, encode it (vq-wav2vec for wavvq, WavLM for shipped),
+    stage the queries, match against the staged database, decode with the
+    VQ-VAE, write BVH."""
+    from .core.config import MATCH_PRESETS, MatchConfig, VQVAEConfig, \
+        load_config
+    from .core.schemas import (CodebookSignature, DatabaseBundle, load_codes,
+                               load_wavlm, load_wavvq)
+    from .match.database import (stage_database, stage_test_audio,
+                                 stage_test_context)
+    from .match.engine import CodeKNNEngine
+    from .models.convert import load_vqvae_checkpoint
+    from .motion.pipeline import MotionPipeline
+    from .pipelines.database_builder import (extract_wavlm, extract_wavvq,
+                                             hashed_embed_fn,
+                                             window_test_audio)
+    from .render.decode import render_result
+
+    if args.model == "end2end":
+        raise NotImplementedError("generate --model end2end is not ported "
+                                  "yet")
+    if args.resync:
+        raise NotImplementedError("generate --resync is not ported yet")
+    if args.video:
+        raise NotImplementedError("generate --video is not ported yet")
+    for req in ("train_database", "train_codebook", "codebook_signature"):
+        if not getattr(args, req):
+            raise SystemExit(f"--model matching needs "
+                             f"--{req.replace('_', '-')}")
+    preset = MATCH_PRESETS[args.preset]
+    ckpt_arg = "wavvq_checkpoint" if preset.audio_mode == "wavvq_feat" \
+        else "wavlm_checkpoint"
+    if not getattr(args, ckpt_arg):
+        raise SystemExit(f"--preset {args.preset} needs "
+                         f"--{ckpt_arg.replace('_', '-')}")
+    if not args.vqvae_checkpoint.endswith((".bin", ".pt")):
+        raise NotImplementedError(
+            "only reference torch checkpoints (.bin/.pt) are ported yet; "
+            f"got {args.vqvae_checkpoint}")
+
+    if args.wav.endswith(".npz"):
+        wav = np.load(args.wav)["wav"].astype(np.float32).reshape(-1)
+    else:
+        from .pipelines.audio_prep import load_wav_16k
+        wav = load_wav_16k(args.wav)
+    windows = window_test_audio(wav)
+    print(f"{windows.shape[0]} windows of 4 s")
+
+    bundle = DatabaseBundle.load(args.train_database)
+    signature = CodebookSignature.load(args.codebook_signature)
+    cfg = MatchConfig(**{**preset.__dict__,
+                         "codebook_size": signature.signature.shape[0]})
+    db = stage_database(
+        cfg, bundle, load_codes(args.train_codebook), signature,
+        wavlm=load_wavlm(args.train_wavlm) if args.train_wavlm else None,
+        wavvq=load_wavvq(args.train_wavvq) if args.train_wavvq else None)
+
+    if cfg.audio_mode == "wavvq_feat":
+        from .models.vq_wav2vec import load_vq_wav2vec_checkpoint
+        encoder = load_vq_wav2vec_checkpoint(args.wavvq_checkpoint,
+                                             device=args.device)
+        test_audio = stage_test_audio(
+            cfg, db, wavvq=extract_wavvq(encoder, windows))
+    else:
+        from .models.wavlm import load_wavlm_checkpoint
+        encoder = load_wavlm_checkpoint(args.wavlm_checkpoint,
+                                        device=args.device)
+        test_audio = stage_test_audio(
+            cfg, db, wavlm=extract_wavlm(encoder, windows))
+    test_context = None
+    if cfg.use_txt:
+        # without transcripts the context is the empty-text embedding,
+        # replicated per window
+        ctx = np.tile(hashed_embed_fn()([""] * 30)[None],
+                      (windows.shape[0], 1, 1)).astype(np.float32)
+        test_context = stage_test_context(db, ctx)
+
+    engine = CodeKNNEngine(cfg, db, device=args.device)
+    codes = engine.predict(test_audio, test_context).codes
+    print(f"matched codes {codes.shape}")
+
+    conf = load_config(args.config) if args.config else None
+    model = load_vqvae_checkpoint(args.vqvae_checkpoint,
+                                  conf.vqvae if conf else VQVAEConfig(),
+                                  device=args.device)
+    with open(args.pipeline) as f:
+        pipeline = MotionPipeline.from_json(f.read())
+    mean = np.asarray(conf.data_mean) if conf and conf.data_mean else None
+    std = np.asarray(conf.data_std) if conf and conf.data_std else None
+    bvh_path, _ = render_result(codes, model, pipeline, args.out,
+                                args.prefix, data_mean=mean, data_std=std,
+                                smoothing=args.smooth)
+    print(f"wrote {bvh_path}")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="qpgesture_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -153,6 +251,36 @@ def main(argv=None):
     d.add_argument("--device", default="cuda",
                    help="torch device (default cuda; raises without a GPU)")
     d.set_defaults(fn=cmd_decode)
+
+    g = sub.add_parser("generate", help="wav -> gestures (match + decode)")
+    g.add_argument("--wav", required=True)
+    g.add_argument("--model", choices=("matching", "end2end"),
+                   default="matching",
+                   help="'matching' = KNN against the database (default); "
+                        "'end2end' is not ported yet")
+    g.add_argument("--train-database")
+    g.add_argument("--train-codebook")
+    g.add_argument("--codebook-signature")
+    g.add_argument("--train-wavlm")
+    g.add_argument("--train-wavvq")
+    g.add_argument("--wavvq-checkpoint",
+                   help="fairseq vq-wav2vec .pt (--preset wavvq)")
+    g.add_argument("--wavlm-checkpoint",
+                   help="Microsoft WavLM .pt (--preset shipped)")
+    g.add_argument("--vqvae-checkpoint", required=True)
+    g.add_argument("--pipeline", required=True,
+                   help="MotionPipeline JSON snapshot")
+    g.add_argument("--config")
+    g.add_argument("--preset", default="wavvq", choices=["shipped", "wavvq"])
+    g.add_argument("--out", default="./output")
+    g.add_argument("--prefix", default="generated")
+    g.add_argument("--smooth", action="store_true")
+    g.add_argument("--video", action="store_true",
+                   help="not ported yet")
+    g.add_argument("--resync", metavar="CKPT", help="not ported yet")
+    g.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; raises without a GPU)")
+    g.set_defaults(fn=cmd_generate)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -1,10 +1,14 @@
-"""Carry VQ-VAE weights between the JAX parameter trees and the port.
+"""Carry weights between the JAX parameter trees and the port.
 
-The port's VQVAE uses the reference's parameter names, so a reference
-checkpoint loads with ``load_state_dict`` (``load_vqvae_checkpoint``).
-``vqvae_state_dict_from_jax`` is the exact inverse of the JAX package's
-``models/torch_convert.convert_vqvae``: it maps a flax parameter tree and
-codebook back to a state_dict.
+The port's modules use the reference's parameter names (the VQ-VAE's,
+Microsoft's WavLM's, fairseq's vq-wav2vec's), so reference checkpoints load
+with ``load_state_dict`` (``load_vqvae_checkpoint`` here,
+``models/wavlm.load_wavlm_checkpoint``,
+``models/vq_wav2vec.load_vq_wav2vec_checkpoint``). The ``*_from_jax``
+functions are the inverses of the JAX package's converters
+(``models/torch_convert.convert_vqvae``, ``models/wavlm.convert_wavlm``,
+``models/vq_wav2vec.convert_vq_wav2vec``): they map a flax parameter tree
+back to a state_dict.
 
 Layout facts (the inverse of those in torch_convert):
   * flax conv kernel (k, in, out) -> Conv1d weight (out, in, k);
@@ -21,7 +25,9 @@ import torch
 
 from ..core.config import VQVAEConfig
 from ..device import DeviceLike
+from .vq_wav2vec import VQWav2VecConfig
 from .vqvae import VQVAE
+from .wavlm import WavLMConfig, weight_norm
 
 
 def _t(x) -> torch.Tensor:
@@ -72,6 +78,106 @@ def vqvae_state_dict_from_jax(params: Dict, cb,
 
     sd["bottleneck.level_blocks.0.k"] = _t(cb.k)
     return sd
+
+
+def _dense(p: Dict, key: str, out: Dict) -> None:
+    out[f"{key}.weight"] = _t(np.asarray(p["kernel"]).T)
+    out[f"{key}.bias"] = _t(p["bias"])
+
+
+def _layer_norm(p: Dict, key: str, out: Dict) -> None:
+    out[f"{key}.weight"] = _t(p["scale"])
+    out[f"{key}.bias"] = _t(p["bias"])
+
+
+def wavlm_state_dict_from_jax(variables: Dict,
+                              cfg: WavLMConfig) -> Dict[str, torch.Tensor]:
+    """The JAX package's WavLMJax parameters (numpy leaves; scanned or
+    unrolled layers) -> the port's (and Microsoft's) WavLM state_dict: the
+    inverse of the JAX package's ``convert_wavlm``. The positional conv
+    weight becomes weight_v, with weight_g its own norm, so that
+    g / ||v|| * v reproduces it exactly."""
+    params = variables.get("params", variables)
+    sd: Dict[str, torch.Tensor] = {}
+    fe = params["feature_extractor"]
+    for i in range(len(cfg.conv_feature_layers)):
+        base = f"feature_extractor.conv_layers.{i}"
+        sd[f"{base}.0.weight"] = _t(
+            np.asarray(fe[f"conv{i}_kernel"]).transpose(2, 1, 0))
+        if cfg.conv_bias:
+            sd[f"{base}.0.bias"] = _t(fe[f"conv{i}_bias"])
+        if cfg.extractor_mode == "layer_norm":
+            _layer_norm(fe[f"ln{i}"], f"{base}.2.1", sd)
+        elif i == 0:
+            sd[f"{base}.2.weight"] = _t(fe["gn_scale"])
+            sd[f"{base}.2.bias"] = _t(fe["gn_bias"])
+    _layer_norm(params["feat_layer_norm"], "layer_norm", sd)
+    if "post_extract_proj" in params:
+        _dense(params["post_extract_proj"], "post_extract_proj", sd)
+
+    v = _t(np.asarray(params["pos_conv_kernel"]).transpose(2, 1, 0))
+    sd["encoder.pos_conv.0.weight_g"] = weight_norm(v)
+    sd["encoder.pos_conv.0.weight_v"] = v
+    sd["encoder.pos_conv.0.bias"] = _t(params["pos_conv_bias"])
+    _layer_norm(params["encoder_layer_norm"], "encoder.layer_norm", sd)
+
+    if "layers_scan" in params:
+        stacked = params["layers_scan"]["layer"]
+        layers = [params["layer0"]] + [
+            _tree_index(stacked, i) for i in range(cfg.encoder_layers - 1)]
+    else:
+        layers = [params[f"layer{i}"] for i in range(cfg.encoder_layers)]
+    for i, layer in enumerate(layers):
+        base = f"encoder.layers.{i}"
+        attn = layer["self_attn"]
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _dense(attn[name], f"{base}.self_attn.{name}", sd)
+        if cfg.gru_rel_pos:
+            _dense(attn["grep_linear"], f"{base}.self_attn.grep_linear", sd)
+            sd[f"{base}.self_attn.grep_a"] = _t(attn["grep_a"])
+        if i == 0 and cfg.relative_position_embedding:
+            sd[f"{base}.self_attn.relative_attention_bias.weight"] = _t(
+                attn["rel_bias"])
+        _layer_norm(layer["self_attn_layer_norm"],
+                    f"{base}.self_attn_layer_norm", sd)
+        _layer_norm(layer["final_layer_norm"], f"{base}.final_layer_norm",
+                    sd)
+        _dense(layer["fc1"], f"{base}.fc1", sd)
+        _dense(layer["fc2"], f"{base}.fc2", sd)
+    return sd
+
+
+def vq_wav2vec_state_dict_from_jax(variables: Dict, cfg: VQWav2VecConfig
+                                   ) -> Dict[str, torch.Tensor]:
+    """The JAX package's VQWav2Vec parameters (numpy leaves) -> the port's
+    (and fairseq's) state_dict: the inverse of ``convert_vq_wav2vec`` for
+    the nested weight_proj layout."""
+    params = variables.get("params", variables)
+    sd: Dict[str, torch.Tensor] = {}
+    fe = params["feature_extractor"]
+    for i in range(len(cfg.conv_layers)):
+        base = f"feature_extractor.conv_layers.{i}"
+        sd[f"{base}.0.weight"] = _t(
+            np.asarray(fe[f"conv{i}_kernel"]).transpose(2, 1, 0))
+        sd[f"{base}.2.weight"] = _t(fe[f"gn{i}_scale"])
+        sd[f"{base}.2.bias"] = _t(fe[f"gn{i}_bias"])
+    vq = params["vector_quantizer"]
+    pre = "vector_quantizer.weight_proj"
+    depth = cfg.weight_proj_depth
+    if depth > 1:
+        for d in range(depth - 1):
+            _dense(vq[f"proj{d}"], f"{pre}.{d}.0", sd)
+        _dense(vq["proj_out"], f"{pre}.{depth - 1}", sd)
+    else:
+        _dense(vq["proj_out"], pre, sd)
+    return sd
+
+
+def _tree_index(tree, i: int):
+    """Entry i along the leading axis of every leaf of a nested dict."""
+    if isinstance(tree, dict) or hasattr(tree, "items"):
+        return {k: _tree_index(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
 
 
 def strip_prefix(state_dict: Dict, prefix: str = "module.") -> Dict:

@@ -3,8 +3,8 @@
 Replaces the TPU kernel ``qpgesture_tpu/ops/pallas_kernels.py ::
 levenshtein_matrix_pallas``. The kernel source is ``csrc/levenshtein.cu``
 (its header says what bounds it on an H100 and what the design does about
-it). It is compiled with ``nvcc`` for ``sm_90a`` on first use, into
-``_build/`` keyed by a hash of the source and flags, and bound with ctypes.
+it). It is compiled with ``nvcc`` for ``sm_90a`` on first use
+(``ops/cuda_build.py``) and bound with ctypes.
 
 ``levenshtein_matrix`` is the wrapper: for CPU tensors it runs the plain
 PyTorch version (``levenshtein_matrix_plain``); for CUDA tensors it launches
@@ -13,20 +13,13 @@ the kernel or raises. ``launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 
 import torch
 
+from . import cuda_build
 from .levenshtein import levenshtein_matrix as levenshtein_matrix_plain
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "levenshtein.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+SOURCE = "levenshtein.cu"
 # String lengths the kernel is instantiated for (template<int L>).
 LENGTHS = (11,)
 
@@ -34,35 +27,10 @@ launches = 0
 _lib = None
 
 
-def _nvcc() -> str:
-    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
-                           "PATH) — the Levenshtein kernel cannot be built")
-    return found
-
-
 def build() -> str:
     """Compile the kernel library unless this source was built already;
     returns the path of the shared library."""
-    with open(SOURCE, "rb") as f:
-        key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    lib_path = os.path.join(BUILD_DIR,
-                            f"liblevenshtein_{key.hexdigest()[:16]}.so")
-    if not os.path.exists(lib_path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{lib_path}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib_path)   # atomic: concurrent builds agree
-    return lib_path
+    return cuda_build.build(SOURCE)
 
 
 def _load():

@@ -16,7 +16,7 @@ from qpgesture_tpu_torch.match.database import (stage_database,
                                                 stage_test_audio,
                                                 stage_test_context)
 from qpgesture_tpu_torch.match.engine import CodeKNNEngine
-from qpgesture_tpu_torch.ops import levenshtein_cuda
+from qpgesture_tpu_torch.ops import flash_attention_cuda, levenshtein_cuda
 
 from fixtures import make_fixture
 
@@ -52,6 +52,61 @@ def test_levenshtein_kernel_rejects_unbuilt_length(cuda):
     a = torch.zeros((2, 10), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="no kernel instantiation"):
         levenshtein_cuda.levenshtein_matrix(a, a)
+
+
+def _attention_inputs(B, H, T, hd, gated, seed=0):
+    rng = np.random.RandomState(seed)
+    x = [torch.from_numpy(rng.randn(*s).astype(np.float32)) for s in
+         ((B, H, T, hd), (B, H, T, hd), (B, H, T, hd), (H, T, T), (B, H, T))]
+    x[4] = 1.0 + torch.sigmoid(x[4]) if gated else None
+    return x
+
+
+# (B, H, T, hd, gated, kernel dtype, tolerance): float32 rows differ from the
+# plain version by summation order only; bfloat16 rows also by where p is
+# rounded (per key tile in the kernel, per row in the plain version), one
+# bfloat16 rounding of weights that sum to 1.
+@pytest.mark.parametrize("B,H,T,hd,gated,dtype,atol", [
+    (6, 16, 199, 64, True, torch.float32, 1e-5),
+    (6, 16, 199, 64, False, torch.float32, 1e-5),
+    (6, 16, 199, 64, True, torch.bfloat16, 2e-2),
+    (6, 16, 37, 64, True, torch.float32, 1e-5),
+    (1, 16, 1200, 64, True, torch.float32, 1e-5),
+    (2, 4, 159, 16, True, torch.float32, 1e-5),
+    (2, 2, 100, 32, False, torch.bfloat16, 2e-2),
+])
+def test_flash_attention_kernel_matches_plain(cuda, B, H, T, hd, gated,
+                                              dtype, atol):
+    q, k, v, bias, gate = (None if x is None else x.to(cuda) for x in
+                           _attention_inputs(B, H, T, hd, gated, seed=T))
+    before = flash_attention_cuda.launches
+    got = flash_attention_cuda.gated_flash_attention(
+        q, k, v, bias, gate, sm_scale=hd ** -0.5, kernel_dtype=dtype)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    assert got.shape == (B, H, T, hd) and got.dtype == torch.float32
+    want = flash_attention_cuda.gated_attention_plain(
+        q, k, v, bias, gate, sm_scale=hd ** -0.5, kernel_dtype=dtype)
+    assert float((got - want).abs().max()) <= atol
+
+
+def test_flash_attention_kernel_takes_strided_views(cuda):
+    """WavLM hands the kernel (B, T, H, hd) projections seen as (B, H, T,
+    hd): strided views give the contiguous inputs' result exactly."""
+    q, k, v, bias, gate = (x.to(cuda) for x in
+                           _attention_inputs(2, 4, 50, 64, True))
+    views = [x.transpose(1, 2).contiguous().transpose(1, 2)
+             for x in (q, k, v)]
+    a = flash_attention_cuda.gated_flash_attention(q, k, v, bias, gate)
+    b = flash_attention_cuda.gated_flash_attention(*views, bias, gate)
+    assert torch.equal(a, b)
+
+
+def test_flash_attention_kernel_rejects_unbuilt_head_dim(cuda):
+    q, k, v, bias, gate = (x.to(cuda) for x in
+                           _attention_inputs(1, 2, 8, 48, True))
+    with pytest.raises(ValueError, match="no kernel instantiation"):
+        flash_attention_cuda.gated_flash_attention(q, k, v, bias, gate)
 
 
 @pytest.mark.parametrize("preset", ["wavvq", "shipped", "mfcc"])

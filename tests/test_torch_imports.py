@@ -23,7 +23,11 @@ def _port_modules():
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     mods = _port_modules()
-    assert "qpgesture_tpu_torch.ops.levenshtein_cuda" in mods
+    for m in ("ops.levenshtein_cuda", "ops.flash_attention_cuda",
+              "ops.cuda_build", "models.wavlm", "models.vq_wav2vec",
+              "match.device_staging", "pipelines.audio_prep",
+              "pipelines.database_builder", "serve"):
+        assert f"qpgesture_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -48,7 +52,10 @@ def test_entry_points_default_to_cuda(tmp_path):
     from qpgesture_tpu_torch.cli import main
     from qpgesture_tpu_torch.core.config import MatchConfig, VQVAEConfig
     from qpgesture_tpu_torch.match.engine import CodeKNNEngine
+    from qpgesture_tpu_torch.models.vq_wav2vec import (VQWav2Vec,
+                                                       VQWav2VecConfig)
     from qpgesture_tpu_torch.models.vqvae import VQVAE
+    from qpgesture_tpu_torch.models.wavlm import WavLM, WavLMConfig
     from qpgesture_tpu_torch.motion.fk import forward_kinematics
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -63,3 +70,20 @@ def test_entry_points_default_to_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["decode", "--result", codes, "--checkpoint",
               str(tmp_path / "x.bin"), "--pipeline", str(tmp_path / "p")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        WavLM(WavLMConfig(encoder_layers=1, encoder_embed_dim=16,
+                          encoder_ffn_embed_dim=16,
+                          encoder_attention_heads=1,
+                          conv_feature_layers=((8, 10, 5),)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        VQWav2Vec(VQWav2VecConfig(conv_layers=((8, 10, 5),)))
+
+    # generate: every input it reads before the first device is resolved
+    from test_torch_rawwav import _write_generate_inputs
+    from fixtures import make_fixture
+    rng = np.random.RandomState(0)
+    for preset in ("shipped", "wavvq"):
+        args = _write_generate_inputs(tmp_path, make_fixture(
+            rng, n_seq=2, n_test=1, codebook=64), rng, preset)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(args + ["--out", str(tmp_path / "out")])

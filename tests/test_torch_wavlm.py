@@ -1,0 +1,159 @@
+"""WavLM: the port's modules against the JAX package's, with the same
+weights carried across (the port's state dict through the JAX package's
+own ``convert_wavlm``, and JAX parameters through the port's
+``wavlm_state_dict_from_jax``), on the same seeded wavs."""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from qpgesture_tpu.models import wavlm as jw
+from qpgesture_tpu_torch.models import wavlm as pw
+from qpgesture_tpu_torch.models.convert import wavlm_state_dict_from_jax
+from qpgesture_tpu_torch.ops import flash_attention_cuda
+
+# tests/test_wavlm.py's small model
+SMALL = dict(encoder_layers=2, encoder_embed_dim=64, encoder_ffn_embed_dim=128,
+             encoder_attention_heads=4, num_buckets=32, max_distance=80,
+             conv_feature_layers=((32, 10, 5), (32, 3, 2), (32, 3, 2)))
+STYLES = {
+    "large_style": dict(extractor_mode="layer_norm", conv_bias=True,
+                        layer_norm_first=True, normalize=True),
+    "base_style": dict(extractor_mode="default", conv_bias=False,
+                       layer_norm_first=False, normalize=False),
+}
+# Features: float32 on both sides, other summation orders through 2 layers
+# and their LayerNorm chains; the variance is E[x^2] - E[x]^2 in flax and
+# two-pass in torch. 2e-4 on features of unit scale.
+FEAT_ATOL = 2e-4
+
+
+def _configs(style, **over):
+    kw = {**SMALL, **STYLES[style], **over}
+    return jw.WavLMJaxConfig(scan_layers=False, **kw), pw.WavLMConfig(**kw)
+
+
+def _port_model(pcfg, seed=3):
+    torch.manual_seed(seed)
+    model = pw.WavLM(pcfg, device="cpu")
+    # amplify the gate projection: at random init grep_linear gives ~0 and
+    # the gate is ~constant for any input (tests/test_wavlm.py:75-82)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "grep_linear" in name:
+                p.mul_(8.0)
+    return model
+
+
+def _wav(seed=0, B=2, n=3200):
+    return (np.random.RandomState(seed).randn(B, n) * 0.2).astype(np.float32)
+
+
+@pytest.mark.parametrize("T,nb,md", [(199, 320, 800), (1200, 320, 800),
+                                     (40, 32, 80), (300, 320, 1280)])
+def test_relative_position_bucket_bit_equal(T, nb, md):
+    pos = np.arange(T)
+    rel = pos[None, :] - pos[:, None]
+    got = pw.relative_position_bucket(rel, nb, md)
+    want = jw.relative_position_bucket(rel, nb, md)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("impl", ["eager", "flash"])
+def test_attention_matches_jax(impl):
+    """One attention layer with amplified grep_linear and bias table: the
+    gate must come from the raw per-head hidden state."""
+    D, H, T, B = 64, 4, 23, 2
+    jcfg, pcfg = _configs("large_style", attn_impl=impl)
+    torch.manual_seed(5)
+    attn = pw.WavLMAttention(pcfg, has_bias_table=True)
+    with torch.no_grad():
+        attn.grep_linear.weight.mul_(5.0)
+        attn.grep_linear.bias.mul_(5.0)
+        attn.grep_a.copy_(torch.rand(1, H, 1, 1) + 0.5)
+    sd = {k: v.numpy() for k, v in attn.state_dict().items()}
+    params = {n: {"kernel": sd[f"{n}.weight"].T, "bias": sd[f"{n}.bias"]}
+              for n in ("q_proj", "k_proj", "v_proj", "out_proj",
+                        "grep_linear")}
+    params["grep_a"] = sd["grep_a"]
+    params["rel_bias"] = sd["relative_attention_bias.weight"]
+    x = np.random.RandomState(11).randn(B, T, D).astype(np.float32)
+    want, want_bias = jw.WavLMAttention(jcfg, has_bias_table=True).apply(
+        {"params": params}, jnp.asarray(x), None)
+    before = flash_attention_cuda.launches
+    got, got_bias = attn(torch.from_numpy(x), None)
+    assert flash_attention_cuda.launches == before
+    np.testing.assert_array_equal(got_bias.detach().numpy(),
+                                  np.asarray(want_bias))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("style", sorted(STYLES))
+@pytest.mark.parametrize("impl", ["eager", "flash"])
+def test_wavlm_matches_jax(style, impl):
+    """A random port WavLM, mapped into flax with the JAX package's own
+    converter (so the port's parameter names are Microsoft's)."""
+    jcfg, pcfg = _configs(style, attn_impl=impl)
+    model = _port_model(pcfg)
+    variables = jw.convert_wavlm(model.state_dict(), jcfg)
+    wav = _wav()
+    want = np.asarray(jw.WavLMJax(jcfg).apply(variables, jnp.asarray(wav)))
+    got = model(torch.from_numpy(wav)).numpy()
+    assert got.shape == want.shape == (2, 159, 64)
+    np.testing.assert_allclose(got, want, rtol=0, atol=FEAT_ATOL)
+    # output_layer: the first n layers, without the final LayerNorm
+    want1 = np.asarray(jw.WavLMJax(jcfg).apply(variables, jnp.asarray(wav),
+                                                output_layer=1))
+    got1 = model(torch.from_numpy(wav), output_layer=1).numpy()
+    np.testing.assert_allclose(got1, want1, rtol=0, atol=FEAT_ATOL)
+
+
+@pytest.mark.parametrize("scan_layers", [True, False])
+def test_state_dict_from_jax_parameters(scan_layers):
+    """JAX-initialised parameters (scanned or unrolled layers) through the
+    port's converter: the port computes the JAX model's features."""
+    import jax
+    jcfg, pcfg = _configs("large_style", encoder_layers=3)
+    jcfg = dataclasses.replace(jcfg, scan_layers=scan_layers)
+    wav = _wav(seed=1)
+    variables = jw.WavLMJax(jcfg).init(jax.random.PRNGKey(0),
+                                        jnp.asarray(wav[:1]))
+    variables = jax.tree_util.tree_map(np.asarray, variables)
+    model = pw.WavLM(pcfg, device="cpu")
+    model.load_state_dict(wavlm_state_dict_from_jax(variables, pcfg))
+    want = np.asarray(jw.WavLMJax(jcfg).apply(variables, jnp.asarray(wav)))
+    got = model(torch.from_numpy(wav)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=FEAT_ATOL)
+
+
+def test_checkpoint_round_trip(tmp_path):
+    """A Microsoft-layout {"cfg", "model"} checkpoint loads into the port
+    with every tensor in place; extra keys (mask_emb) are ignored. The
+    conv stack is WavLM's own: like the JAX loader, the port does not read
+    conv_feature_layers from the checkpoint."""
+    _, pcfg = _configs("large_style")
+    pcfg = dataclasses.replace(pcfg, conv_feature_layers=pw.WavLMConfig()
+                               .conv_feature_layers)
+    model = _port_model(pcfg)
+    sd = dict(model.state_dict(), mask_emb=torch.zeros(64))
+    cfg_dict = {k: v for k, v in dataclasses.asdict(pcfg).items()
+                if k != "conv_feature_layers"}
+    path = str(tmp_path / "wavlm.pt")
+    torch.save({"cfg": cfg_dict, "model": sd}, path)
+    loaded = pw.load_wavlm_checkpoint(path, device="cpu")
+    assert loaded.cfg == pcfg
+    wav = torch.from_numpy(_wav(seed=2))
+    assert torch.equal(loaded(wav), model(wav))
+    with pytest.raises(KeyError, match="lacks"):
+        torch.save({"cfg": cfg_dict, "model": {}}, path)
+        pw.load_wavlm_checkpoint(path, device="cpu")
+
+
+def test_precisions_not_ported_raise():
+    _, pcfg = _configs("large_style", precision="default")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        pw.WavLM(pcfg, device="cpu")
