@@ -10,14 +10,19 @@ counts set to 0 just before it and read just after:
 
   phases 3-5   K1 checks and times; host-staged wavvq serving (J=1024
                database, 3 requests of 6 windows = 24 s clips) and the
-               match -> decode CLI;
-  phase 6      K2 checks at the WavLM shapes, K2 / plain / SDPA times;
+               match -> decode CLI (a J=64 database on disk);
+  phase 6      K2 in float32 and bfloat16 against its plain version at
+               its tile edges, hd 16/32/64; K2 / plain / SDPA times in
+               both types;
   phase 7      raw-wav serving of the shipped preset at full WavLM-Large
                width (24 layers, random weights), 3 requests of 6 int16
                windows, against host-staged serving, the eager attention
                and the CPU port;
-  phase 8      raw-wav serving of the wavvq preset (random vq-wav2vec);
-  phase 9      the ``generate`` CLI, wav file -> BVH (a 2-layer WavLM).
+  phase 8      the same requests with the encoder at precision="default":
+               bfloat16 K2, codes against host-staged serving and phase
+               7's, features against the CPU port's "default";
+  phase 9      raw-wav serving of the wavvq preset (random vq-wav2vec);
+  phase 10     the ``generate`` CLI, wav file -> BVH (a 2-layer WavLM).
 
 It prints one line per check. The last three lines are the card's name and
 power limit, one JSON object with every kernel's launches, error and
@@ -44,7 +49,7 @@ SEED = 20260
 J = 1024           # database sequences (tests/fixtures.py shapes)
 W = 6              # windows per request: a 24 s clip
 N_REQUESTS = 3
-J_CLI = 64         # database of the generate CLI phase (files on disk)
+J_CLI = 64         # database of the CLI phases (written compressed to disk)
 POSE_ATOL = 1e-3   # card vs CPU poses: float32 decode, other sum orders
 # K2 against its plain version: float32 differs by summation order; in
 # bfloat16 the kernel rounds p against a running (per key tile) max and the
@@ -53,6 +58,12 @@ K2_ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # WavLM-Large features (unit scale after the last LayerNorm): float32 on
 # both sides, other summation orders through 24 layers.
 FEAT_ATOL = 2e-3
+# WavLM-Large at precision="default", card against CPU: the same bfloat16
+# operands, but another summation order (and the tensor cores' float32
+# accumulation) can move an activation across a bfloat16 rounding edge
+# (2^-8 relative), and 24 layers carry such flips on: 0.1 on features of
+# scale ~4.5, five times the bfloat16 step there.
+DEFAULT_FEAT_ATOL = 0.1
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS = 67e12           # float32 outside the tensor cores (TF32 off)
 BF16_TC_FLOPS = 989e12      # bfloat16 tensor cores, dense
@@ -257,9 +268,11 @@ def flash_bound(B: int, H: int, T: int, hd: int, in_bytes: int,
 
 
 def phase_k2(dev):
-    """K2 against its plain version at the WavLM shapes; then its time,
-    the plain version's and SDPA's at the main-path shape. Returns the
-    kernels-line fields measured here."""
+    """K2 against its plain version at the kernels' tile edges and the
+    WavLM shapes, in both instantiations; then the times of K2, its plain
+    version and SDPA at the main-path shape in float32 and in bfloat16.
+    Returns the kernels-line fields measured here (float32, the main
+    path's)."""
     import torch
     import torch.nn.functional as F
     from qpgesture_tpu_torch.ops import flash_attention_cuda as K2
@@ -275,78 +288,91 @@ def phase_k2(dev):
         return q, k, v, bias, gate
 
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = [("main path", 6, 16, 199, 64, True, f32),
-             ("no gate", 6, 16, 199, 64, False, f32),
-             ("bfloat16", 6, 16, 199, 64, True, bf16),
-             ("ragged T=37", 6, 16, 37, 64, True, f32),
-             ("whole clip T=1200", 1, 16, 1200, 64, True, f32)]
+    # (B, H, T, hd): the 32-key and 16-/64-query tile edges, WavLM's
+    # windows (T=199) and a whole 24 s clip (T=1200); hd 16 and 32 once
+    shapes = [(2, 16, T, 64) for T in (1, 31, 32, 33, 63, 64, 65)] + \
+        [(6, 16, 199, 64), (1, 16, 1200, 64), (2, 16, 65, 16),
+         (2, 16, 65, 32)]
     max_err = 0.0
-    kept = {}
-    for name, B, H, T, hd, gated, dtype in cases:
-        x = inputs(B, H, T, hd, gated)
-        got = K2.gated_flash_attention(*x, sm_scale=hd ** -0.5,
-                                       kernel_dtype=dtype)
-        torch.cuda.synchronize()
-        want = K2.gated_attention_plain(*x, sm_scale=hd ** -0.5,
-                                        kernel_dtype=dtype)
-        err = float((got - want).abs().max())
-        tol = K2_ATOL[str(dtype).split(".")[-1]]
-        log(f"phase 6 K2 {name}: B={B} H={H} T={T} hd={hd} {dtype} "
-            f"max_abs_err={err:.3e} (tol {tol})")
-        if not err <= tol:
-            raise SystemExit(f"K2 disagrees with its plain version: {name}")
-        if dtype == f32:
-            max_err = max(max_err, err)
-        kept[name] = x
+    for B, H, T, hd in shapes:
+        for gated in (True, False):
+            x = inputs(B, H, T, hd, gated)
+            for dtype in (f32, bf16):
+                got = K2.gated_flash_attention(*x, sm_scale=hd ** -0.5,
+                                               kernel_dtype=dtype)
+                torch.cuda.synchronize()
+                want = K2.gated_attention_plain(*x, sm_scale=hd ** -0.5,
+                                                kernel_dtype=dtype)
+                err = float((got - want).abs().max())
+                tol = K2_ATOL[str(dtype).split(".")[-1]]
+                log(f"phase 6 K2 B={B} H={H} T={T} hd={hd} "
+                    f"{'gated' if gated else 'no gate'} {dtype}: "
+                    f"max_abs_err={err:.3e} (tol {tol})")
+                if not err <= tol:
+                    raise SystemExit(f"K2 disagrees with its plain version "
+                                     f"at T={T} hd={hd} {dtype}")
+                if dtype == f32:
+                    max_err = max(max_err, err)
 
+    # Times at the main-path shape, on the inputs the main path hands the
+    # kernel: q, k, v, gate in the kernel dtype, the bias already in the
+    # kernel's layout (WavLM prepares it once per forward). The library
+    # yardstick is one SDPA call on the same inputs in the same dtype, q
+    # pre-scaled and the gated bias materialised as its mask outside the
+    # timed call (measured only; the port never calls it).
     scale = 64 ** -0.5
-    q, k, v, bias, gate = kept["main path"]
-    # the library yardstick: one SDPA call on the same float32 inputs,
-    # with q pre-scaled and the gated bias materialised as its mask outside
-    # the timed call (measured only; the port never calls it)
-    qs, mask = q * scale, gate[..., None] * bias[None]
-    sdpa = F.scaled_dot_product_attention(qs, k, v, attn_mask=mask,
-                                          scale=1.0)
-    sdpa_err = float((sdpa - K2.gated_attention_plain(
-        q, k, v, bias, gate, sm_scale=scale)).abs().max())
-    calls = {
-        "kernel": lambda: K2.gated_flash_attention(q, k, v, bias, gate,
-                                                   sm_scale=scale),
-        "plain": lambda: K2.gated_attention_plain(q, k, v, bias, gate,
-                                                  sm_scale=scale),
-        "library": lambda: F.scaled_dot_product_attention(
-            qs, k, v, attn_mask=mask, scale=1.0),
-    }
-    ms = {name: device_ms(fn, 20) for name, fn in calls.items()}
-    call_ms = {name: median_ms(fn, 20) for name, fn in calls.items()}
-    bound_ms, bound_by = flash_bound(6, 16, 199, 64, 4, True, F32_FLOPS)
-    log(f"phase 6 K2 times at B=6 H=16 T=199 hd=64 float32: "
-        f"kernel_ms={ms['kernel']:.5f} plain_ms={ms['plain']:.5f} "
-        f"library_ms={ms['library']:.5f} (SDPA, max_abs_err vs plain "
-        f"{sdpa_err:.3e}) bound_ms={bound_ms:.5f} ({bound_by}); one call "
-        f"between two events, host time included: kernel "
-        f"{call_ms['kernel']:.5f} plain {call_ms['plain']:.5f} library "
-        f"{call_ms['library']:.5f}")
-    for name, dtype, rate, in_bytes in (
-            ("bfloat16", bf16, BF16_TC_FLOPS, 2),
-            ("whole clip T=1200", f32, F32_FLOPS, 4)):
-        x = kept[name]
-        B, H, T, hd = x[0].shape
+    q, k, v, bias, gate = inputs(6, 16, 199, 64, True)
+    line = {}
+    for dtype, rate, in_bytes in ((f32, F32_FLOPS, 4),
+                                  (bf16, BF16_TC_FLOPS, 2)):
+        xq, xk, xv, xg = (t.to(dtype) for t in (q, k, v, gate))
+        xb = K2.prepare_bias(bias, dtype)
+        qs = (q * scale).to(dtype)
+        mask = (gate[..., None] * bias[None]).to(dtype)
+        sdpa_err = float((F.scaled_dot_product_attention(
+            qs, xk, xv, attn_mask=mask, scale=1.0).float()
+            - K2.gated_attention_plain(q, k, v, bias, gate, sm_scale=scale,
+                                       kernel_dtype=dtype)).abs().max())
+        calls = {
+            "kernel": lambda: K2.gated_flash_attention(
+                xq, xk, xv, xb, xg, sm_scale=scale, kernel_dtype=dtype),
+            "plain": lambda: K2.gated_attention_plain(
+                xq, xk, xv, xb, xg, sm_scale=scale, kernel_dtype=dtype),
+            "library": lambda: F.scaled_dot_product_attention(
+                qs, xk, xv, attn_mask=mask, scale=1.0),
+        }
+        ms = {name: device_ms(fn, 20) for name, fn in calls.items()}
+        call_ms = median_ms(calls["kernel"], 20)
+        bound_ms, bound_by = flash_bound(6, 16, 199, 64, in_bytes, True,
+                                         rate)
+        log(f"phase 6 K2 times at B=6 H=16 T=199 hd=64 {dtype}: "
+            f"kernel_ms={ms['kernel']:.5f} plain_ms={ms['plain']:.5f} "
+            f"library_ms={ms['library']:.5f} (SDPA, max_abs_err vs plain "
+            f"{sdpa_err:.3e}) bound_ms={bound_ms:.5f} ({bound_by}); one "
+            f"kernel call between two events {call_ms:.5f}, host cost per "
+            f"call {call_ms - ms['kernel']:+.5f} ms")
+        if dtype == f32:
+            line = dict(max_abs_err=max_err, ms=ms["kernel"],
+                        plain_ms=ms["plain"], bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=ms["library"])
+    q, k, v, bias, gate = inputs(1, 16, 1200, 64, True)
+    for dtype, rate, in_bytes in ((f32, F32_FLOPS, 4),
+                                  (bf16, BF16_TC_FLOPS, 2)):
+        x = [t.to(dtype) for t in (q, k, v)] + [
+            K2.prepare_bias(bias, dtype), gate.to(dtype)]
         t_ms = device_ms(lambda: K2.gated_flash_attention(
             *x, sm_scale=scale, kernel_dtype=dtype), 20)
-        b_ms, b_by = flash_bound(B, H, T, hd, in_bytes, True, rate)
-        log(f"phase 6 K2 times at B={B} H={H} T={T} hd={hd} {dtype}: "
+        b_ms, b_by = flash_bound(1, 16, 1200, 64, in_bytes, True, rate)
+        log(f"phase 6 K2 times at B=1 H=16 T=1200 hd=64 {dtype}: "
             f"kernel_ms={t_ms:.5f} bound_ms={b_ms:.5f} ({b_by})")
-    return dict(max_abs_err=max_err, ms=ms["kernel"], plain_ms=ms["plain"],
-                bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=ms["library"])
+    return line
 
 
 def phase_rawwav_shipped(dev, rng, bundle, codes, signature, vqvae_gpu,
                          vqvae_cpu, data_mean, data_std):
     """Raw-wav serving of the shipped preset at full WavLM-Large width.
-    Returns (K2 launches of the main run, the CPU encoder, its wavlm
-    database features)."""
+    Returns (K2 launches of the main run, what the "default" phase reuses:
+    the encoders, the engine, the requests and their codes)."""
     import numpy as np
     import torch
     from qpgesture_tpu_torch.core.config import MATCH_PRESETS
@@ -482,7 +508,109 @@ def phase_rawwav_shipped(dev, rng, bundle, codes, signature, vqvae_gpu,
         raise SystemExit("the profiled raw-wav request shows no K2 kernel")
     log(f"phase 7 K2 in the profiled request: {k2[0][1]} launches, "
         f"{k2[0][0] / k2[0][1] / 1e3:.5f} ms per launch")
-    return k2_launches, enc_cpu, feats_db
+    return k2_launches, dict(
+        enc_cpu=enc_cpu, enc_gpu=enc_gpu, feats_db=feats_db, cfg=cfg, db=db,
+        engine=engine, wavs=wavs, ctxs=ctxs,
+        codes=[c for c, _ in served], feats=feats_flash)
+
+
+def phase_rawwav_default(dev, ctx, vqvae_gpu, data_mean, data_std):
+    """Raw-wav serving of the shipped preset with the encoder at
+    precision="default" (bfloat16 contractions, K2 in bfloat16), on the
+    weights and requests of phase 7."""
+    import numpy as np
+    import torch
+    from qpgesture_tpu_torch.match.database import (stage_test_audio,
+                                                    stage_test_context)
+    from qpgesture_tpu_torch.models.wavlm import WavLM
+    from qpgesture_tpu_torch.ops import flash_attention_cuda as K2
+    from qpgesture_tpu_torch.serve import RawWavServer, ServingPipeline
+
+    t0 = time.time()
+    cfg, db, wavs, ctxs = ctx["cfg"], ctx["db"], ctx["wavs"], ctx["ctxs"]
+    wcfg = dataclasses.replace(ctx["enc_cpu"].cfg, precision="default")
+    enc_gpu = WavLM(wcfg, device=dev)
+    enc_gpu.load_state_dict(ctx["enc_gpu"].state_dict())
+    server = RawWavServer(ctx["engine"], vqvae_gpu, enc_gpu, data_mean,
+                          data_std)
+
+    def serve(r):
+        return server.serve(wavs[r], ctxs[r], init_code=0,
+                            rng=np.random.RandomState(cfg.seed))
+
+    serve(N_REQUESTS)                   # warm-up request
+    torch.cuda.synchronize()
+    log(f"phase 8 set-up: WavLM-Large at precision=\"default\", phase 7's"
+        f" weights; {time.time() - t0:.1f} s")
+    K2.launches = 0
+    served, req_ms = [], []
+    for r in range(N_REQUESTS):
+        before = K2.launches
+        t0 = time.perf_counter()
+        served.append(serve(r))
+        req_ms.append(1e3 * (time.perf_counter() - t0))
+        if K2.launches - before != wcfg.encoder_layers:
+            raise SystemExit(f"default request {r} launched K2 "
+                             f"{K2.launches - before} times, not "
+                             f"{wcfg.encoder_layers}")
+    k2_launches = K2.launches
+
+    pipe = ServingPipeline(ctx["engine"], vqvae_gpu, data_mean, data_std)
+    n_same = n_clips_same = 0
+    for r, (codes_r, poses_r) in enumerate(served):
+        feats = server.encode(wavs[r])
+        want, _ = pipe.serve(stage_test_audio(cfg, db,
+                                              wavlm=feats.cpu().numpy()),
+                             stage_test_context(db, ctxs[r]), init_code=0,
+                             rng=np.random.RandomState(cfg.seed))
+        if codes_r.shape != (W, 30) or not np.isfinite(poses_r).all():
+            raise SystemExit(f"default request {r}: shape {codes_r.shape} "
+                             f"or non-finite poses")
+        if not np.array_equal(codes_r, want):
+            raise SystemExit(f"default request {r}: raw-wav codes differ "
+                             f"from host-staged serving of the card's "
+                             f"features")
+        same = codes_r == ctx["codes"][r]
+        n_same += int(same.sum())
+        n_clips_same += int(same.all())
+    agreement = n_same / (N_REQUESTS * W * 30)
+    log(f"phase 8 serve p50 {statistics.median(req_ms):.3f} ms over "
+        f"{N_REQUESTS} requests; K2 launches {k2_launches} "
+        f"({wcfg.encoder_layers} per request); codes == host-staged serving "
+        f"of the card's \"default\" features in every request; against "
+        f"phase 7's \"highest\" codes: index_agreement {agreement:.4f} "
+        f"({n_same}/{N_REQUESTS * W * 30}), clips_identical "
+        f"{n_clips_same}/{N_REQUESTS}")
+
+    # the card's "default" features against the CPU port's "default", on
+    # two windows of request 0
+    t0 = time.time()
+    enc_cpu = WavLM(wcfg, device="cpu")
+    enc_cpu.load_state_dict(ctx["enc_cpu"].state_dict())
+    x = torch.as_tensor(wavs[0][:2]).float() / 32768.0
+    feats_cpu = enc_cpu(x)
+    feats_gpu = enc_gpu(x.to(dev))
+    err = float((feats_gpu.cpu() - feats_cpu).abs().max())
+    vs_highest = float((feats_gpu - ctx["feats"][:2]).abs().max())
+    log(f"phase 8 card vs CPU port at \"default\", request 0 windows 0-1: "
+        f"features max_abs_err {err:.3e} (tol {DEFAULT_FEAT_ATOL}); card "
+        f"\"default\" vs \"highest\" features: max_abs_diff "
+        f"{vs_highest:.3e}; {time.time() - t0:.1f} s")
+    if not err <= DEFAULT_FEAT_ATOL:
+        raise SystemExit("card \"default\" features differ from the CPU "
+                         "port's")
+    del enc_cpu
+
+    encoder_ms = median_ms(lambda: server.encode(wavs[0]), 5, warmup=1)
+    log(f"phase 8 stage times: encoder_ms={encoder_ms:.4f}")
+    kernels = log_profile("phase 8", lambda: serve(0))
+    k2 = [(us, n) for key, (us, n) in kernels.items()
+          if "gated_flash_kernel_bf16" in key]
+    if not k2 or k2[0][1] != wcfg.encoder_layers:
+        raise SystemExit("the profiled \"default\" request shows no "
+                         "bfloat16 K2 kernel")
+    log(f"phase 8 bfloat16 K2 in the profiled request: {k2[0][1]} "
+        f"launches, {k2[0][0] / k2[0][1] / 1e3:.5f} ms per launch")
 
 
 def phase_rawwav_wavvq(dev, rng, serving, db, cfg):
@@ -531,7 +659,7 @@ def phase_rawwav_wavvq(dev, rng, serving, db, cfg):
             raise SystemExit(f"wavvq raw-wav request {r}: codes differ from "
                              f"host-staged serving of the card's codes")
     encoder_ms = median_ms(lambda: server.encode(wavs[0]), 10)
-    log(f"phase 8 wavvq raw-wav serve p50 {statistics.median(req_ms):.3f} "
+    log(f"phase 9 wavvq raw-wav serve p50 {statistics.median(req_ms):.3f} "
         f"ms over {N_REQUESTS} requests; encoder_ms={encoder_ms:.4f}; codes"
         f" == host-staged serving of the card's vq-wav2vec codes; K1 "
         f"launches {k1_launches}, K2 launches {K2.launches}")
@@ -585,7 +713,7 @@ def phase_generate(rng, bundle, codes, signature, feats_db, enc_cpu,
         if bvh.values.shape != (W * 240, len(bvh.channel_names)) or \
                 not np.isfinite(bvh.values).all():
             raise SystemExit(f"generate BVH {bvh.values.shape}")
-        log(f"phase 9 generate --preset shipped: 24 s wav -> BVH "
+        log(f"phase 10 generate --preset shipped: 24 s wav -> BVH "
             f"{bvh.values.shape} parsed back; {layers}-layer WavLM "
             f"checkpoint, J={J_CLI} database; files {t1 - t0:.1f} s, "
             f"command {time.time() - t1:.1f} s")
@@ -604,7 +732,13 @@ def main() -> int:
               f"{__file__}; run it from a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    t_start = time.time()
+    t_start = t_mark = time.time()
+
+    def phase_wall(phase: str) -> None:
+        nonlocal t_mark
+        now = time.time()
+        log(f"{phase} wall {now - t_mark:.1f} s")
+        t_mark = now
 
     # -- phase 1: the card -------------------------------------------------
     smi = nvidia_smi("name,power.limit")
@@ -631,6 +765,7 @@ def main() -> int:
     cuda_build.build_all([K1.SOURCE, K2.SOURCE])
     log(f"phase 2 build: {K1.SOURCE} + {K2.SOURCE} "
         f"{time.time() - t0:.2f} s")
+    phase_wall("phases 1-2")
 
     rng = np.random.RandomState(SEED)
     bundle, codes, signature, wavvq, clips = make_data(rng)
@@ -699,6 +834,7 @@ def main() -> int:
     log(f"phase 3 K1 times at Q={Q} N={b_corpus.shape[0]}: "
         f"kernel_ms={corpus_ms:.5f} bound_ms={corpus_bound:.5f}")
     del cases, b_corpus
+    phase_wall("phase 3")
 
     # -- phase 4: host-staged wavvq serving ----------------------------------
     vq_cfg = VQVAEConfig()
@@ -773,6 +909,7 @@ def main() -> int:
     log(f"phase 4 stage times: tables_ms={tables_ms:.4f} "
         f"scan_ms={scan_ms:.4f} decode_ms={decode_ms:.4f}")
     log_profile("phase 4", lambda: serving.serve(*requests[0]))
+    phase_wall("phase 4")
 
     # -- phase 5: match -> decode CLI --------------------------------------
     from qpgesture_tpu_torch.cli import main as cli
@@ -782,10 +919,12 @@ def main() -> int:
     from qpgesture_tpu_torch.motion.pipeline import MotionPipeline
     with tempfile.TemporaryDirectory() as tmp:
         p = lambda name: os.path.join(tmp, name)
-        bundle.save(p("db.npz"))
-        save_codes(p("codes.npz"), codes)
+        t0 = time.time()
+        dataclasses.replace(bundle, context=bundle.context[:J_CLI],
+                            phase=bundle.phase[:J_CLI]).save(p("db.npz"))
+        save_codes(p("codes.npz"), codes[:J_CLI])
         signature.save(p("code.npz"))
-        save_wavvq(p("wavvq.npz"), wavvq)
+        save_wavvq(p("wavvq.npz"), wavvq[:J_CLI])
         save_wavvq(p("test_wavvq.npz"), clips[0][0])
         dataclasses.replace(bundle, context=clips[0][1],
                             phase=None).save(p("test.npz"))
@@ -793,7 +932,7 @@ def main() -> int:
         pipe = MotionPipeline(fps=60).fit(parse_bvh(skeleton_bvh_text(rng)))
         with open(p("pipeline.json"), "w") as f:
             f.write(pipe.to_json())
-        t0 = time.time()
+        t1 = time.time()
         cli(["match", "--train-database", p("db.npz"),
              "--train-codebook", p("codes.npz"),
              "--codebook-signature", p("code.npz"),
@@ -816,24 +955,37 @@ def main() -> int:
             raise SystemExit(f"CLI BVH {bvh.values.shape}, positions "
                              f"{positions.shape}")
         log(f"phase 5 CLI match -> decode: result {result.shape}, BVH "
-            f"{bvh.values.shape} parsed back, {time.time() - t0:.2f} s")
+            f"{bvh.values.shape} parsed back; J={J_CLI} database; files "
+            f"{t1 - t0:.1f} s, commands {time.time() - t1:.2f} s")
+
+    phase_wall("phase 5")
 
     # -- phase 6: K2 against its plain version on the card ------------------
     k2_line = phase_k2(dev)
+    phase_wall("phase 6")
 
     # -- phase 7: raw-wav serving, shipped preset, WavLM-Large --------------
-    k2_launches, enc_cpu, feats_db = phase_rawwav_shipped(
+    k2_launches, shipped = phase_rawwav_shipped(
         dev, rng, bundle, codes, signature, model_gpu, model_cpu,
         data_mean, data_std)
+    phase_wall("phase 7")
 
-    # -- phase 8: raw-wav serving, wavvq preset -----------------------------
+    # -- phase 8: the same at precision="default" (bfloat16 K2) -----------
+    phase_rawwav_default(dev, shipped, model_gpu, data_mean, data_std)
+    enc_cpu, feats_db = shipped["enc_cpu"], shipped["feats_db"]
+    del shipped
+    phase_wall("phase 8")
+
+    # -- phase 9: raw-wav serving, wavvq preset -----------------------------
     phase_rawwav_wavvq(dev, rng, serving, db, cfg)
+    phase_wall("phase 9")
 
-    # -- phase 9: generate CLI ----------------------------------------------
+    # -- phase 10: generate CLI ----------------------------------------------
     phase_generate(rng, bundle, codes, signature, feats_db, enc_cpu,
                    model_cpu)
+    phase_wall("phase 10")
 
-    # -- phase 10: the kernels line and the result --------------------------
+    # -- phase 11: the kernels line and the result --------------------------
     kernels_line = {"kernels": [{
         "name": "levenshtein_matrix",
         "route": "cuda",

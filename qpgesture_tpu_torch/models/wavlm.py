@@ -18,8 +18,27 @@ checkpoint loads with ``load_state_dict`` (``load_wavlm_checkpoint``).
 Numerics follow the JAX package, which is what the port is held against:
 every LayerNorm uses flax's default epsilon 1e-6 (the published torch
 WavLM uses torch's 1e-5); the group norm and the wav normalisation use the
-1e-5 the JAX code writes. Only ``precision="highest"`` is ported: true
-float32 contractions, TF32 off (the features feed cosine ranks).
+1e-5 the JAX code writes. Two of the JAX package's precisions are ported:
+
+  * ``"highest"``: true float32 contractions, TF32 off (the features feed
+    cosine ranks);
+  * ``"default"``: what XLA's ``Precision.DEFAULT`` does on a TPU. Every
+    contraction (the conv extractor, ``pos_conv``, the q/k/v/out
+    projections, ``grep_linear``, ``fc1``/``fc2``, ``post_extract_proj``)
+    rounds its operands to bfloat16 and sums in float32, with a float32
+    output; LayerNorm, GELU, the gate's sigmoid and the softmax statistics
+    stay float32; attention goes through K2 in bfloat16 (or, eager, through
+    the same rounding). On the card the products are cuBLAS bfloat16 GEMMs
+    with float32 outputs (``torch.mm``/``torch.bmm`` with ``out_dtype``);
+    the convolutions are such GEMMs over unfolded windows, because cuDNN's
+    bfloat16 convolutions round their outputs to bfloat16. The CPU rounds
+    the same operands and multiplies in float32, so the two differ only in
+    summation order. Where this differs from XLA's DEFAULT: on a CPU XLA
+    computes DEFAULT in float32 (only the attention kernel rounds there),
+    and the tensor cores' float32 accumulation is not IEEE round-to-nearest
+    at every step.
+
+``"high"`` (bf16x3) is not ported yet.
 """
 from __future__ import annotations
 
@@ -37,7 +56,7 @@ from ..ops import flash_attention_cuda
 
 LN_EPS = 1e-6       # flax nn.LayerNorm's default, as the JAX package uses
 NORM_EPS = 1e-5     # group norm and wav normalisation, as the JAX code writes
-PRECISIONS = ("highest",)
+PRECISIONS = ("highest", "default")
 
 
 @dataclass(frozen=True)
@@ -62,8 +81,9 @@ class WavLMConfig:
     num_buckets: int = 320
     max_distance: int = 800
     gru_rel_pos: bool = True
-    # "highest" = true float32 everywhere (TF32 off). "high" and "default"
-    # (bf16x3 and 1-pass bf16 in the JAX package) are not ported yet.
+    # "highest" = true float32 everywhere (TF32 off); "default" = bfloat16
+    # operands, float32 sums and outputs in every contraction (the module
+    # docstring). "high" (bf16x3 in the JAX package) is not ported yet.
     precision: str = "highest"
     # "flash": kernel K2 (its plain version on the CPU); "eager": the
     # materialised softmax, the JAX package's "xla" branch; "auto": "flash"
@@ -77,6 +97,43 @@ class WavLMConfig:
                    extractor_mode="default", conv_bias=False,
                    layer_norm_first=False, normalize=False,
                    max_distance=1280)
+
+
+def matmul_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b for (M, K) @ (K, N) or (G, M, K) @ (G, K, N): operands rounded
+    to bfloat16, float32 sums and output. On the card one cuBLAS bfloat16
+    GEMM that writes float32; on the CPU a float32 product of the rounded
+    operands (exact products, float32 sums)."""
+    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    mm = torch.mm if a.dim() == 2 else torch.bmm
+    if a.is_cuda:
+        return mm(a, b, out_dtype=torch.float32)
+    return mm(a.float(), b.float())
+
+
+def bf16_copy(module: nn.Module, key: str, make) -> torch.Tensor:
+    """A bfloat16 weight derived from `module`'s parameters by make(),
+    kept on the module and made again only when a parameter changes (in
+    place, as load_state_dict does, or by a move to another device)."""
+    params = tuple(module.parameters(recurse=False))
+    stamp = tuple((p.data_ptr(), p._version, p.device) for p in params)
+    cache = module.__dict__.setdefault("_bf16_weights", {})
+    hit = cache.get(key)
+    if hit is None or hit[0] != stamp:
+        with torch.no_grad():
+            hit = cache[key] = (stamp, make().to(torch.bfloat16))
+    return hit[1]
+
+
+def linear(layer: nn.Linear, x: torch.Tensor, precision: str) -> torch.Tensor:
+    """layer(x) at `precision`: "default" multiplies bfloat16 operands with
+    float32 sums and adds the float32 bias, as flax's Dense does."""
+    if precision == "highest":
+        return layer(x)
+    w = bf16_copy(layer, "weight", lambda: layer.weight)
+    y = matmul_bf16(x.reshape(-1, x.shape[-1]), w.t())
+    y = y.reshape(*x.shape[:-1], w.shape[0])
+    return y if layer.bias is None else y + layer.bias
 
 
 class TransposeLast(nn.Module):
@@ -108,12 +165,42 @@ class ConvFeatureExtractor(nn.Module):
             blocks.append(nn.Sequential(conv, nn.Identity(), norm, nn.GELU()))
             c_in = dim
         self.conv_layers = nn.ModuleList(blocks)
+        self.precision = cfg.precision
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
+        if self.precision != "highest":
+            return self._forward_bf16(wav)
         x = wav[:, None, :]
         for block in self.conv_layers:
             x = block(x)
         return x.transpose(1, 2)
+
+    def _forward_bf16(self, wav: torch.Tensor) -> torch.Tensor:
+        x = wav[:, :, None]                                  # (B, L, 1)
+        for block in self.conv_layers:
+            x = conv_block_bf16(block, x)
+        return x
+
+
+def conv_block_bf16(block: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+    """One extractor block at the "default" precision, channels last
+    (B, L, C) -> (B, L', C'): the conv is one GEMM over its unfolded
+    windows (bfloat16 operands, float32 out), then the float32 norm and
+    GELU."""
+    conv, _, norm, act = block
+    k, stride = conv.kernel_size[0], conv.stride[0]
+    cols = x.unfold(1, k, stride)                            # (B, L', C, k)
+    B, L = cols.shape[:2]
+    w = bf16_copy(conv, "weight",
+                  lambda: conv.weight.reshape(conv.out_channels, -1))
+    y = matmul_bf16(cols.reshape(B * L, -1), w.t()).view(B, L, -1)
+    if conv.bias is not None:
+        y = y + conv.bias
+    if isinstance(norm, nn.Sequential):                      # layer norm
+        y = norm[1](y)
+    else:                                                    # group / none
+        y = norm(y.transpose(1, 2)).transpose(1, 2)
+    return act(y)
 
 
 def relative_position_bucket(relative_positions: np.ndarray,
@@ -186,15 +273,17 @@ class WavLMAttention(nn.Module):
         if cfg.relative_position_embedding and position_bias is None:
             position_bias = self.position_bias(T)
 
-        q = self.q_proj(x).view(B, T, H, hd)
-        k = self.k_proj(x).view(B, T, H, hd)
-        v = self.v_proj(x).view(B, T, H, hd)
+        prec = cfg.precision
+        q = linear(self.q_proj, x, prec).view(B, T, H, hd)
+        k = linear(self.k_proj, x, prec).view(B, T, H, hd)
+        v = linear(self.v_proj, x, prec).view(B, T, H, hd)
 
         gate = None
         if position_bias is not None and cfg.gru_rel_pos:
             # the gate input is the RAW hidden state split into heads, not
             # the q_proj output (modules.py:523-533, the fast path)
-            g = self.grep_linear(x.view(B, T, H, hd))          # (B,T,H,8)
+            g = linear(self.grep_linear, x.view(B, T, H, hd),
+                       prec)                                   # (B,T,H,8)
             g = torch.sigmoid(g.transpose(1, 2)
                               .reshape(B, H, T, 2, 4).sum(-1))  # (B,H,T,2)
             gate_a, gate_b = g[..., 0], g[..., 1]              # (B,H,T)
@@ -204,27 +293,36 @@ class WavLMAttention(nn.Module):
                                   position_bias is not None)
         scale = hd ** -0.5
         if impl == "flash" and position_bias is not None:
+            # the kernel's bias layout and dtype, made once in layer 0 and
+            # passed down the stack as it is
+            kd = torch.float32 if prec == "highest" else torch.bfloat16
+            position_bias = flash_attention_cuda.prepare_bias(position_bias,
+                                                              kd)
             out = flash_attention_cuda.gated_flash_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                position_bias, gate, sm_scale=scale,
-                kernel_dtype=torch.float32)
+                position_bias, gate, sm_scale=scale, kernel_dtype=kd)
             out = out.transpose(1, 2)                          # (B,T,H,hd)
         else:
-            scores = torch.einsum("bthd,bshd->bhts", q * scale, k)
+            # "default": bfloat16 operands of both products, float32 sums
+            rnd = (lambda t: t) if prec == "highest" else \
+                (lambda t: t.to(torch.bfloat16).float())
+            scores = torch.einsum("bthd,bshd->bhts", rnd(q * scale), rnd(k))
             if position_bias is not None:
                 bias = position_bias[None]                     # (1,H,T,T)
                 if gate is not None:
                     bias = gate[..., None] * bias              # (B,H,T,T)
                 scores = scores + bias
             attn = torch.softmax(scores, dim=-1)
-            out = torch.einsum("bhts,bshd->bthd", attn, v)
-        return self.out_proj(out.reshape(B, T, D)), position_bias
+            out = torch.einsum("bhts,bshd->bthd", rnd(attn), rnd(v))
+        return linear(self.out_proj, out.reshape(B, T, D), prec), \
+            position_bias
 
 
 class WavLMLayer(nn.Module):
     def __init__(self, cfg: WavLMConfig, has_bias_table: bool):
         super().__init__()
         self.layer_norm_first = cfg.layer_norm_first
+        self.precision = cfg.precision
         D = cfg.encoder_embed_dim
         self.self_attn = WavLMAttention(cfg, has_bias_table)
         self.self_attn_layer_norm = nn.LayerNorm(D, eps=LN_EPS)
@@ -232,18 +330,20 @@ class WavLMLayer(nn.Module):
         self.fc2 = nn.Linear(cfg.encoder_ffn_embed_dim, D)
         self.final_layer_norm = nn.LayerNorm(D, eps=LN_EPS)
 
+    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.gelu(linear(self.fc1, x, self.precision))
+        return linear(self.fc2, h, self.precision)
+
     def forward(self, x: torch.Tensor, position_bias: Optional[torch.Tensor]):
         if self.layer_norm_first:
             h, position_bias = self.self_attn(self.self_attn_layer_norm(x),
                                               position_bias)
             x = x + h
-            h = self.final_layer_norm(x)
-            x = x + self.fc2(F.gelu(self.fc1(h)))
+            x = x + self._ffn(self.final_layer_norm(x))
         else:
             h, position_bias = self.self_attn(x, position_bias)
             x = self.self_attn_layer_norm(x + h)
-            h = self.fc2(F.gelu(self.fc1(x)))
-            x = self.final_layer_norm(x + h)
+            x = self.final_layer_norm(x + self._ffn(x))
         return x, position_bias
 
 
@@ -263,10 +363,27 @@ class WeightNormConv1d(nn.Module):
         self.weight_v = nn.Parameter(v)
         self.bias = nn.Parameter(torch.zeros(channels))
 
+    def weight(self) -> torch.Tensor:
+        return self.weight_g / weight_norm(self.weight_v) * self.weight_v
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight_g / weight_norm(self.weight_v) * self.weight_v
-        return F.conv1d(x, w, self.bias, padding=self.padding,
+        return F.conv1d(x, self.weight(), self.bias, padding=self.padding,
                         groups=self.groups)
+
+    def forward_bf16(self, x: torch.Tensor) -> torch.Tensor:
+        """The "default" precision, channels last: (B, T, C) -> (B, T, C)
+        with SamePad's trim for an even kernel applied, one batched GEMM
+        (one per group) over the unfolded windows."""
+        B, T, C = x.shape
+        G, k = self.groups, self.weight_v.shape[-1]
+        cg = C // G
+        w = bf16_copy(self, "weight", lambda: self.weight().reshape(
+            G, cg, cg * k).transpose(1, 2))                  # (G, cg*k, cg)
+        xp = F.pad(x, (0, 0, self.padding, self.padding))
+        cols = xp.unfold(1, k, 1)[:, :T]                     # (B, T, C, k)
+        cols = cols.reshape(B * T, G, cg * k).transpose(0, 1)
+        y = matmul_bf16(cols, w)                             # (G, B*T, cg)
+        return y.transpose(0, 1).reshape(B, T, C) + self.bias
 
 
 def weight_norm(v: torch.Tensor) -> torch.Tensor:
@@ -335,8 +452,12 @@ class WavLM(nn.Module):
             wav = (wav - mean) / torch.sqrt(var + NORM_EPS)
         feats = self.layer_norm(self.feature_extractor(wav))
         if hasattr(self, "post_extract_proj"):
-            feats = self.post_extract_proj(feats)
-        x_conv = self.encoder.pos_conv(feats.transpose(1, 2)).transpose(1, 2)
+            feats = linear(self.post_extract_proj, feats, cfg.precision)
+        if cfg.precision == "highest":
+            x_conv = self.encoder.pos_conv(
+                feats.transpose(1, 2)).transpose(1, 2)
+        else:
+            x_conv = F.gelu(self.encoder.pos_conv[0].forward_bf16(feats))
         x = feats + x_conv
         if not cfg.layer_norm_first:
             x = self.encoder.layer_norm(x)

@@ -74,6 +74,10 @@ def _attention_inputs(B, H, T, hd, gated, seed=0):
     (1, 16, 1200, 64, True, torch.float32, 1e-5),
     (2, 4, 159, 16, True, torch.float32, 1e-5),
     (2, 2, 100, 32, False, torch.bfloat16, 2e-2),
+    (2, 4, 1, 64, True, torch.bfloat16, 2e-2),
+    (2, 4, 33, 64, False, torch.bfloat16, 2e-2),
+    (2, 4, 65, 16, True, torch.bfloat16, 2e-2),
+    (1, 16, 1200, 64, True, torch.bfloat16, 2e-2),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, B, H, T, hd, gated,
                                               dtype, atol):
@@ -100,6 +104,44 @@ def test_flash_attention_kernel_takes_strided_views(cuda):
     a = flash_attention_cuda.gated_flash_attention(q, k, v, bias, gate)
     b = flash_attention_cuda.gated_flash_attention(*views, bias, gate)
     assert torch.equal(a, b)
+
+
+def test_flash_attention_kernel_takes_unaligned_bias(cuda):
+    """An (H, T, T) bias whose rows are not 16-byte aligned (T = 50) is
+    copied into the kernel's layout; prepare_bias gives the same result
+    and is returned as it is when passed again."""
+    q, k, v, bias, gate = (x.to(cuda) for x in
+                           _attention_inputs(2, 4, 50, 64, True))
+    for dtype in (torch.float32, torch.bfloat16):
+        prepared = flash_attention_cuda.prepare_bias(bias, dtype)
+        assert flash_attention_cuda.prepare_bias(prepared, dtype) is prepared
+        a = flash_attention_cuda.gated_flash_attention(
+            q, k, v, bias, gate, kernel_dtype=dtype)
+        b = flash_attention_cuda.gated_flash_attention(
+            q, k, v, prepared, gate, kernel_dtype=dtype)
+        assert torch.equal(a, b)
+
+
+def test_wavlm_default_on_card_matches_cpu(cuda):
+    """A small WavLM at precision="default": the card's bfloat16 GEMMs and
+    bfloat16 K2 against the CPU's rounded-operand float32 emulation, the
+    same operands summed in other orders (features of scale ~4)."""
+    from qpgesture_tpu_torch.models.wavlm import WavLM, WavLMConfig
+    cfg = WavLMConfig(encoder_layers=2, encoder_embed_dim=64,
+                      encoder_ffn_embed_dim=128, encoder_attention_heads=4,
+                      num_buckets=32, max_distance=80, precision="default",
+                      conv_feature_layers=((32, 10, 5), (32, 3, 2),
+                                           (32, 3, 2)))
+    torch.manual_seed(3)
+    cpu = WavLM(cfg, device="cpu")
+    card = WavLM(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    wav = torch.from_numpy((np.random.RandomState(0).randn(2, 3200) * 0.2)
+                           .astype(np.float32))
+    before = flash_attention_cuda.launches
+    got = card(wav.to(cuda))
+    assert flash_attention_cuda.launches == before + cfg.encoder_layers
+    assert float((got.cpu() - cpu(wav)).abs().max()) <= 5e-2
 
 
 def test_flash_attention_kernel_rejects_unbuilt_head_dim(cuda):

@@ -45,8 +45,9 @@ def _port(q, k, v, bias, gate, scale, dtype):
 # magnitude ~1). bfloat16: the inputs are rounded identically on both
 # sides; a rounded weight p can land one bfloat16 ulp (2^-8 relative) apart
 # where exp() rounds differently, which moves an output by at most
-# 2^-8 * p * |v|; 1e-3 (5.6e-5 seen).
-@pytest.mark.parametrize("T", [37, 159])
+# 2^-8 * p * |v|; 1e-3 (5.6e-5 seen). T = 1, 32, 33 and 65 sit on the
+# CUDA kernel's 32-key and 16-/64-query tile edges.
+@pytest.mark.parametrize("T", [1, 32, 33, 37, 65, 159])
 @pytest.mark.parametrize("gated", [True, False])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
                                         (torch.bfloat16, 1e-3)])

@@ -154,6 +154,92 @@ def test_checkpoint_round_trip(tmp_path):
 
 
 def test_precisions_not_ported_raise():
-    _, pcfg = _configs("large_style", precision="default")
+    _, pcfg = _configs("large_style", precision="high")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         pw.WavLM(pcfg, device="cpu")
+
+
+def _bf16_np(x):
+    """x rounded to bfloat16 (nearest even) and widened to float32."""
+    return np.asarray(x, np.float32).astype(jnp.bfloat16).astype(np.float32)
+
+
+def test_default_linear_matches_rounded_reference():
+    """The CPU "default" Linear: bfloat16-rounded operands multiplied with
+    float32 sums, plus the float32 bias. Against numpy on the same rounded
+    operands within 1e-6 (float32 summation order only)."""
+    torch.manual_seed(0)
+    layer = torch.nn.Linear(64, 48)
+    x = np.random.RandomState(1).randn(5, 7, 64).astype(np.float32)
+    got = pw.linear(layer, torch.from_numpy(x), "default").detach().numpy()
+    w = layer.weight.detach().numpy().copy()
+    want = (_bf16_np(x) @ _bf16_np(w).T + layer.bias.detach().numpy())
+    assert got.dtype == np.float32 and got.shape == (5, 7, 48)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    # the bfloat16 copy of the weight is remade after an in-place change
+    with torch.no_grad():
+        layer.weight.mul_(2.0)
+    got2 = pw.linear(layer, torch.from_numpy(x), "default").detach().numpy()
+    want2 = (_bf16_np(x) @ _bf16_np(2 * w).T + layer.bias.detach().numpy())
+    np.testing.assert_allclose(got2, want2, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("style", sorted(STYLES))
+@torch.no_grad()
+def test_default_convs_match_rounded_reference(style):
+    """The "default" convolutions (GEMMs over unfolded windows, channels
+    last) against torch's float64 convolutions of the same bfloat16-rounded
+    operands, block by block on the same input; the rest of each block
+    (norm, GELU) is float32 in both. 1e-5: float32 sums of up to 8192
+    exact products against float64."""
+    _, pcfg = _configs(style, precision="default")
+    model = _port_model(pcfg)
+    x = torch.from_numpy(_wav())[:, :, None]
+    for block in model.feature_extractor.conv_layers:
+        got = pw.conv_block_bf16(block, x)
+        conv, _, norm, act = block
+        y = torch.nn.functional.conv1d(
+            x.transpose(1, 2).bfloat16().double(),
+            conv.weight.bfloat16().double(), stride=conv.stride).float()
+        if conv.bias is not None:
+            y = y + conv.bias[:, None]
+        want = act(norm(y)).transpose(1, 2)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-5)
+        x = got
+    assert x.shape == model.feature_extractor(
+        torch.from_numpy(_wav())).shape
+
+    pos = model.encoder.pos_conv[0]
+    feats = torch.from_numpy(np.random.RandomState(2).randn(
+        2, 23, 64).astype(np.float32))
+    got = pos.forward_bf16(feats)
+    want = torch.nn.functional.conv1d(
+        feats.transpose(1, 2).bfloat16().double(),
+        pos.weight().detach().bfloat16().double(), pos.bias.double(),
+        padding=pos.padding, groups=pos.groups)[..., :23].transpose(1, 2)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-5)
+
+
+# "default" against the JAX package's "default" with attn_impl="flash" (the
+# Pallas kernel in interpret mode, bfloat16). On a CPU XLA computes every
+# other DEFAULT contraction in float32, while the port rounds their
+# operands to bfloat16 as a TPU does: ~10 chained contractions of operands
+# 2^-9 apart, through two layers and their LayerNorms. 8e-2 on features of
+# scale ~4 (0.025-0.036 seen; "default" and "highest" of the port differ
+# by as much).
+@pytest.mark.parametrize("style", sorted(STYLES))
+@pytest.mark.parametrize("impl", ["eager", "flash"])
+def test_wavlm_default_matches_jax(style, impl):
+    jcfg, pcfg = _configs(style, precision="default", attn_impl=impl)
+    jcfg = dataclasses.replace(jcfg, attn_impl="flash")
+    model = _port_model(pcfg)
+    variables = jw.convert_wavlm(model.state_dict(), jcfg)
+    wav = _wav()
+    want = np.asarray(jw.WavLMJax(jcfg).apply(variables, jnp.asarray(wav)))
+    before = flash_attention_cuda.launches
+    got = model(torch.from_numpy(wav)).numpy()
+    assert flash_attention_cuda.launches == before
+    assert got.shape == want.shape == (2, 159, 64)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=8e-2)
