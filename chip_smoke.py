@@ -13,7 +13,7 @@ counts set to 0 just before it and read just after:
                match -> decode CLI (a J=64 database on disk);
   phase 6      K2 in float32 and bfloat16 against its plain version at
                its tile edges, hd 16/32/64; K2 / plain / SDPA times in
-               both types;
+               both types (and K2 / SDPA at serve_batch's B=24);
   phase 7      raw-wav serving of the shipped preset at full WavLM-Large
                width (24 layers, random weights), 3 requests of 6 int16
                windows, against host-staged serving, the eager attention
@@ -22,7 +22,21 @@ counts set to 0 just before it and read just after:
                bfloat16 K2, codes against host-staged serving and phase
                7's, features against the CPU port's "default";
   phase 9      raw-wav serving of the wavvq preset (random vq-wav2vec);
-  phase 10     the ``generate`` CLI, wav file -> BVH (a 2-layer WavLM).
+  phase 10     the ``generate`` CLI, wav file -> BVH (a 2-layer WavLM);
+  phase 11     batched serving: predict_batch of 8 staged wavvq clips (the
+               lane-batched fusion scan) against solo predict, and
+               RawWavServer.serve_batch of 4 shipped clips (24 windows in
+               one WavLM-Large batch) against predict_batch over host
+               staging of the card's batched features;
+  phase 12     streaming: StreamingPool (8 wavvq streams) and
+               StreamingRawWavPool (4 shipped streams), 6 ticks each,
+               against solo sessions; idle streams, reset_stream, and a
+               tick and a push under torch's sync debug mode "error";
+  phase 13     phase 7's requests with the encoder at precision="high"
+               (bf16x3 GEMMs, float32 K2);
+  phase 14     transcript ingress: a full-width random MiniLM through
+               torch.save and load_minilm, TranscriptContextStager's
+               context feeding RawWavServer.serve.
 
 It prints one line per check. The last three lines are the card's name and
 power limit, one JSON object with every kernel's launches, error and
@@ -50,6 +64,8 @@ J = 1024           # database sequences (tests/fixtures.py shapes)
 W = 6              # windows per request: a 24 s clip
 N_REQUESTS = 3
 J_CLI = 64         # database of the CLI phases (written compressed to disk)
+C_STAGED = 8       # clips / streams of the staged wavvq batch and pool
+C_RAW = 4          # clips / streams of the shipped raw-wav batch and pool
 POSE_ATOL = 1e-3   # card vs CPU poses: float32 decode, other sum orders
 # K2 against its plain version: float32 differs by summation order; in
 # bfloat16 the kernel rounds p against a running (per key tile) max and the
@@ -64,6 +80,9 @@ FEAT_ATOL = 2e-3
 # (2^-8 relative), and 24 layers carry such flips on: 0.1 on features of
 # scale ~4.5, five times the bfloat16 step there.
 DEFAULT_FEAT_ATOL = 0.1
+# MiniLM context embeddings (LayerNorm scale, mean-pooled), card against
+# CPU: float32 on both sides (TF32 off), other summation orders, 6 layers.
+MINILM_ATOL = 2e-5
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS = 67e12           # float32 outside the tensor cores (TF32 off)
 BF16_TC_FLOPS = 989e12      # bfloat16 tensor cores, dense
@@ -291,8 +310,8 @@ def phase_k2(dev):
     # (B, H, T, hd): the 32-key and 16-/64-query tile edges, WavLM's
     # windows (T=199) and a whole 24 s clip (T=1200); hd 16 and 32 once
     shapes = [(2, 16, T, 64) for T in (1, 31, 32, 33, 63, 64, 65)] + \
-        [(6, 16, 199, 64), (1, 16, 1200, 64), (2, 16, 65, 16),
-         (2, 16, 65, 32)]
+        [(6, 16, 199, 64), (24, 16, 199, 64), (1, 16, 1200, 64),
+         (2, 16, 65, 16), (2, 16, 65, 32)]
     max_err = 0.0
     for B, H, T, hd in shapes:
         for gated in (True, False):
@@ -365,6 +384,23 @@ def phase_k2(dev):
         b_ms, b_by = flash_bound(1, 16, 1200, 64, in_bytes, True, rate)
         log(f"phase 6 K2 times at B=1 H=16 T=1200 hd=64 {dtype}: "
             f"kernel_ms={t_ms:.5f} bound_ms={b_ms:.5f} ({b_by})")
+    # serve_batch's shape: C_RAW clips of W windows in one encoder batch
+    B = C_RAW * W
+    q, k, v, bias, gate = inputs(B, 16, 199, 64, True)
+    for dtype, rate, in_bytes in ((f32, F32_FLOPS, 4),
+                                  (bf16, BF16_TC_FLOPS, 2)):
+        xq, xk, xv, xg = (t.to(dtype) for t in (q, k, v, gate))
+        xb = K2.prepare_bias(bias, dtype)
+        qs = (q * scale).to(dtype)
+        mask = (gate[..., None] * bias[None]).to(dtype)
+        t_ms = device_ms(lambda: K2.gated_flash_attention(
+            xq, xk, xv, xb, xg, sm_scale=scale, kernel_dtype=dtype), 20)
+        sdpa_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            qs, xk, xv, attn_mask=mask, scale=1.0), 20)
+        b_ms, b_by = flash_bound(B, 16, 199, 64, in_bytes, True, rate)
+        log(f"phase 6 K2 times at B={B} H=16 T=199 hd=64 {dtype}: "
+            f"kernel_ms={t_ms:.5f} library_ms={sdpa_ms:.5f} (SDPA) "
+            f"bound_ms={b_ms:.5f} ({b_by})")
     return line
 
 
@@ -611,6 +647,7 @@ def phase_rawwav_default(dev, ctx, vqvae_gpu, data_mean, data_std):
                          "bfloat16 K2 kernel")
     log(f"phase 8 bfloat16 K2 in the profiled request: {k2[0][1]} "
         f"launches, {k2[0][0] / k2[0][1] / 1e3:.5f} ms per launch")
+    return k2_launches
 
 
 def phase_rawwav_wavvq(dev, rng, serving, db, cfg):
@@ -663,6 +700,7 @@ def phase_rawwav_wavvq(dev, rng, serving, db, cfg):
         f"ms over {N_REQUESTS} requests; encoder_ms={encoder_ms:.4f}; codes"
         f" == host-staged serving of the card's vq-wav2vec codes; K1 "
         f"launches {k1_launches}, K2 launches {K2.launches}")
+    return k1_launches
 
 
 def phase_generate(rng, bundle, codes, signature, feats_db, enc_cpu,
@@ -717,6 +755,418 @@ def phase_generate(rng, bundle, codes, signature, feats_db, enc_cpu,
             f"{bvh.values.shape} parsed back; {layers}-layer WavLM "
             f"checkpoint, J={J_CLI} database; files {t1 - t0:.1f} s, "
             f"command {time.time() - t1:.1f} s")
+
+
+def phase_batch(dev, rng, serving, db, cfg, shipped, vqvae_gpu, data_mean,
+                data_std):
+    """Batched serving: predict_batch of C_STAGED staged wavvq clips against
+    solo predict (exact: integer edit distances), and RawWavServer.
+    serve_batch of the shipped preset at full WavLM-Large width against
+    predict_batch over host staging of the card's own batched features.
+    Returns (K1 launches, K2 launches, the staged clips and their seeds and
+    codes for phase 12)."""
+    import numpy as np
+    import torch
+    from qpgesture_tpu_torch.core import constants as const
+    from qpgesture_tpu_torch.match.database import (stage_test_audio,
+                                                    stage_test_context)
+    from qpgesture_tpu_torch.ops import flash_attention_cuda as K2
+    from qpgesture_tpu_torch.ops import levenshtein_cuda as K1
+    from qpgesture_tpu_torch.serve import RawWavServer
+
+    # -- wavvq, staged: C_STAGED clips of W windows, explicit seeds --------
+    engine = serving.engine
+    C = C_STAGED
+    ta = np.stack([stage_test_audio(cfg, db, wavvq=rng.randint(
+        0, const.WAVVQ_VOCAB, size=(W, const.WAVVQ_FRAMES, 2)
+    ).astype(np.int32)) for _ in range(C)])
+    tc = np.stack([stage_test_context(db, rng.randn(
+        W, 30, 1, 384).astype(np.float32)) for _ in range(C)])
+    inits = rng.randint(0, 512, C).astype(np.int32)
+    phases0 = rng.rand(C, 8, 16).astype(np.float32)
+
+    def batch():
+        return engine.predict_batch(ta, tc, init_codes=inits,
+                                    init_phases=phases0)
+
+    def sequential():
+        return [engine.predict(ta[c], tc[c], init_code=int(inits[c]),
+                               init_phase=phases0[c]) for c in range(C)]
+
+    batch()                              # warm-up
+    torch.cuda.synchronize()
+    K1.launches = K2.launches = 0
+    got = batch()
+    k1_launches = K1.launches
+    if k1_launches != 1:
+        raise SystemExit(f"predict_batch launched K1 {k1_launches} times")
+    for c, (g, s) in enumerate(zip(got, sequential())):
+        if not (np.array_equal(g.codes, s.codes)
+                and np.array_equal(g.phases, s.phases)
+                and np.array_equal(g.votes, s.votes)):
+            raise SystemExit(f"predict_batch lane {c} differs from solo "
+                             f"predict")
+    batch_ms = median_ms(batch, 5, warmup=1)
+    seq_ms = median_ms(sequential, 3, warmup=0)
+    log(f"phase 11 wavvq predict_batch C={C} W={W} (Q={C * W * 8}): every "
+        f"lane == solo predict (codes, phases, votes); K1 launches "
+        f"{k1_launches}; batch_ms={batch_ms:.3f} ({1e3 * C / batch_ms:.1f}"
+        f" clips/s) vs {C} sequential predict {seq_ms:.3f} ms "
+        f"({1e3 * C / seq_ms:.1f} clips/s), x{seq_ms / batch_ms:.2f}")
+    log_profile("phase 11 wavvq predict_batch", batch)
+
+    # -- shipped, raw wav: phase 7's requests as one batch ----------------
+    s_cfg, s_db, s_engine = shipped["cfg"], shipped["db"], shipped["engine"]
+    server = RawWavServer(s_engine, vqvae_gpu, shipped["enc_gpu"], data_mean,
+                          data_std)
+    CB = C_RAW
+    wav = np.stack(shipped["wavs"][:CB])              # (CB, W, 64000) int16
+    ctx = np.stack(shipped["ctxs"][:CB])
+    zeros_c = np.zeros(CB, np.int32)
+    zeros_p = np.zeros((CB, 8, 16), np.float32)
+
+    def serve_batch():
+        return server.serve_batch(wav, ctx, zeros_c, zeros_p,
+                                  rng=np.random.RandomState(s_cfg.seed))
+
+    def serve_solo(c):
+        return server.serve(wav[c], ctx[c], init_code=0,
+                            rng=np.random.RandomState(s_cfg.seed))
+
+    serve_batch()                        # warm-up
+    torch.cuda.synchronize()
+    K1.launches = K2.launches = 0
+    codes_b, poses_b = serve_batch()
+    k2_launches = K2.launches
+    if k2_launches != shipped["enc_gpu"].cfg.encoder_layers:
+        raise SystemExit(f"serve_batch launched K2 {k2_launches} times")
+    if codes_b.shape != (CB, W, 30) or poses_b.shape != (CB, W * 240, 135) \
+            or not np.isfinite(poses_b).all():
+        raise SystemExit(f"serve_batch shapes {codes_b.shape} "
+                         f"{poses_b.shape} or non-finite poses")
+    feats = server.encode(wav.reshape(CB * W, -1))
+    S = server.n_steps
+    ta_h = stage_test_audio(s_cfg, s_db, wavlm=feats.cpu().numpy())
+    tc_h = stage_test_context(s_db, ctx.reshape((CB * W,) + ctx.shape[2:]))
+    want = s_engine.predict_batch(ta_h.reshape(CB, W, S, -1),
+                                  tc_h.reshape(CB, W, S, -1),
+                                  init_codes=zeros_c, init_phases=zeros_p)
+    for c in range(CB):
+        if not np.array_equal(codes_b[c], want[c].codes):
+            raise SystemExit(f"serve_batch clip {c} differs from "
+                             f"predict_batch over host staging of the "
+                             f"card's batched features")
+    solo_codes = shipped["codes"] + [serve_solo(c)[0]
+                                     for c in range(N_REQUESTS, CB)]
+    same = np.stack(solo_codes) == codes_b
+    feat_diff = max(float((server.encode(wav[c]) - feats[c * W:(c + 1) * W])
+                          .abs().max()) for c in range(CB))
+    batch_ms = median_ms(serve_batch, 3, warmup=0)
+    seq_ms = median_ms(lambda: [serve_solo(c) for c in range(CB)], 2,
+                       warmup=0)
+    log(f"phase 11 shipped serve_batch C={CB} W={W} (encoder batch "
+        f"{CB * W}): codes == predict_batch over host staging of the card's "
+        f"batched features; K2 launches {k2_launches}; against solo serve "
+        f"(phase 7's codes): index_agreement {same.mean():.4f} "
+        f"({int(same.sum())}/{same.size}), clips_identical "
+        f"{int(same.all(axis=(1, 2)).sum())}/{CB}, batched vs solo features "
+        f"max_abs_diff {feat_diff:.3e}; batch_ms={batch_ms:.3f} "
+        f"({1e3 * CB / batch_ms:.2f} clips/s) vs {CB} sequential serve "
+        f"{seq_ms:.3f} ms ({1e3 * CB / seq_ms:.2f} clips/s), "
+        f"x{seq_ms / batch_ms:.2f}")
+    kernels = log_profile("phase 11 shipped serve_batch", serve_batch)
+    k2 = [(us, n) for key, (us, n) in kernels.items()
+          if "gated_flash_kernel_f32" in key]
+    if k2:
+        log(f"phase 11 K2 at B={CB * W} in the profiled batch: {k2[0][1]} "
+            f"launches, {k2[0][0] / k2[0][1] / 1e3:.5f} ms per launch")
+    return k1_launches, k2_launches, dict(
+        ta=ta, tc=tc, inits=inits, phases=phases0, codes=got, server=server,
+        wav=wav, ctx=ctx, solo_codes=solo_codes)
+
+
+def phase_streaming(dev, serving, staged):
+    """Streaming: a StreamingPool of C_STAGED staged wavvq streams and a
+    StreamingRawWavPool of C_RAW shipped raw-wav streams, W ticks each,
+    stream by stream against solo sessions; idle streams, reset_stream,
+    and no host sync in a tick or a push. Returns (K1, K2 launches)."""
+    import numpy as np
+    import torch
+    from qpgesture_tpu_torch.ops import flash_attention_cuda as K2
+    from qpgesture_tpu_torch.ops import levenshtein_cuda as K1
+    from qpgesture_tpu_torch.serve import (StreamingPool,
+                                           StreamingRawWavPool,
+                                           StreamingRawWavSession,
+                                           StreamingSession)
+
+    def no_sync(fn):
+        """fn() with torch's sync debug mode raising on any call that
+        waits for the card; the result is downloaded afterwards."""
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return out.cpu().numpy()
+
+    # -- staged wavvq pool -------------------------------------------------
+    engine = serving.engine
+    ta, tc, C = staged["ta"], staged["tc"], C_STAGED
+    inits, phases0 = staged["inits"], staged["phases"]
+    rngs = [np.random.RandomState(100 + i) for i in range(C)]
+    pool = StreamingPool(engine, C, init_codes=inits, init_phases=phases0,
+                         rngs=rngs)
+    torch.cuda.synchronize()
+    K1.launches = K2.launches = 0
+    rows, tick_ms = [], []
+    for w in range(W):
+        t0 = time.perf_counter()
+        rows.append(pool.tick(ta[:, w], tc[:, w]))
+        tick_ms.append(1e3 * (time.perf_counter() - t0))
+    k1_launches = K1.launches
+    got = np.stack(rows, 1)                                   # (C, W, 30)
+    for i in range(C):
+        sess = StreamingSession(engine, init_code=int(inits[i]),
+                                init_phase=phases0[i],
+                                rng=np.random.RandomState(100 + i))
+        solo = np.stack([sess.push_window(ta[i, w], tc[i, w])
+                         for w in range(W)])
+        if not (np.array_equal(got[i], solo)
+                and np.array_equal(got[i], staged["codes"][i].codes)):
+            raise SystemExit(f"StreamingPool stream {i} differs from a solo "
+                             f"session or from phase 11's batch")
+    # an idle stream keeps its seeds; reset_stream re-seeds a slot
+    before = [x.clone() for x in pool.state()]
+    active = np.ones(C, bool)
+    active[3] = False
+    pool.tick(ta[:, 0], tc[:, 0], active=active)
+    after = pool.state()
+    if not all(torch.equal(b[3], a[3]) for b, a in zip(before, after)):
+        raise SystemExit("an idle stream's seeds changed")
+    zero = np.zeros((8, 16), np.float32)
+    pool.reset_stream(5, init_code=17, init_phase=zero,
+                      rng=np.random.RandomState(7))
+    fresh = StreamingSession(engine, init_code=17, init_phase=zero,
+                             rng=np.random.RandomState(7))
+    if not np.array_equal(pool.tick(ta[:, 1], tc[:, 1])[5],
+                          fresh.push_window(ta[5, 1], tc[5, 1])):
+        raise SystemExit("reset_stream did not re-seed the slot")
+    no_sync(lambda: pool.tick_device(ta[:, 2], tc[:, 2], active=active))
+    no_sync(lambda: fresh.push_window_device(ta[5, 2], tc[5, 2]))
+    tick_p50 = statistics.median(tick_ms)
+    log(f"phase 12 wavvq StreamingPool {C} streams x {W} ticks: every "
+        f"stream == a solo StreamingSession == phase 11's lane; an idle "
+        f"stream kept its seeds, reset_stream re-seeded a slot; a tick and "
+        f"a push ran under sync debug mode \"error\"; K1 launches "
+        f"{k1_launches}; tick p50 {tick_p50:.3f} ms ({C} streams)")
+
+    # -- shipped raw-wav pool ------------------------------------------------
+    server, wav, ctx, CB = staged["server"], staged["wav"], staged["ctx"], \
+        C_RAW
+    seed = server.engine.cfg.seed
+    zeros_c = np.zeros(CB, np.int32)
+    zeros_p = np.zeros((CB, 8, 16), np.float32)
+    rpool = StreamingRawWavPool(server, CB, init_codes=zeros_c,
+                                init_phases=zeros_p,
+                                rngs=[np.random.RandomState(seed)
+                                      for _ in range(CB)])
+    torch.cuda.synchronize()
+    K1.launches = K2.launches = 0
+    rows, tick_ms = [], []
+    for w in range(W):
+        t0 = time.perf_counter()
+        rows.append(rpool.tick(wav[:, w], ctx[:, w]))
+        tick_ms.append(1e3 * (time.perf_counter() - t0))
+    k2_launches = K2.launches
+    layers = server.encoder.cfg.encoder_layers
+    if k2_launches != W * layers:
+        raise SystemExit(f"the raw pool launched K2 {k2_launches} times")
+    got = np.stack(rows, 1)
+    for i in range(CB):
+        sess = StreamingRawWavSession(server, init_code=0, init_phase=zero,
+                                      rng=np.random.RandomState(seed))
+        solo = np.stack([sess.push_wav(wav[i, w], ctx[i, w])
+                         for w in range(W)])
+        if not np.array_equal(got[i], solo):
+            raise SystemExit(f"StreamingRawWavPool stream {i} differs from "
+                             f"a solo StreamingRawWavSession")
+        if not np.array_equal(solo, staged["solo_codes"][i]):
+            raise SystemExit(f"solo StreamingRawWavSession {i} differs from "
+                             f"RawWavServer.serve over the same windows")
+    no_sync(lambda: rpool.tick_device(wav[:, 0], ctx[:, 0]))
+    no_sync(lambda: sess.push_wav_device(wav[0, 0], ctx[0, 0]))
+    log(f"phase 12 shipped StreamingRawWavPool {CB} streams x {W} ticks: "
+        f"every stream == a solo StreamingRawWavSession == RawWavServer."
+        f"serve over the same windows; a raw tick and a raw "
+        f"push ran under sync debug mode \"error\"; K2 launches "
+        f"{k2_launches} ({layers} per tick); tick p50 "
+        f"{statistics.median(tick_ms):.3f} ms ({CB} streams, encoder batch "
+        f"{CB})")
+    return k1_launches, k2_launches
+
+
+def phase_high(dev, shipped, vqvae_gpu, data_mean, data_std):
+    """Raw-wav serving of the shipped preset with the encoder at
+    precision="high" (bf16x3 GEMMs, K2 in float32), on phase 7's weights
+    and requests. Returns K2 launches."""
+    import numpy as np
+    import torch
+    from qpgesture_tpu_torch.match.database import (stage_test_audio,
+                                                    stage_test_context)
+    from qpgesture_tpu_torch.models.wavlm import WavLM
+    from qpgesture_tpu_torch.ops import flash_attention_cuda as K2
+    from qpgesture_tpu_torch.serve import RawWavServer, ServingPipeline
+
+    cfg, db, wavs, ctxs = (shipped["cfg"], shipped["db"], shipped["wavs"],
+                           shipped["ctxs"])
+    wcfg = dataclasses.replace(shipped["enc_cpu"].cfg, precision="high")
+    enc_gpu = WavLM(wcfg, device=dev)
+    enc_gpu.load_state_dict(shipped["enc_gpu"].state_dict())
+    server = RawWavServer(shipped["engine"], vqvae_gpu, enc_gpu, data_mean,
+                          data_std)
+
+    def serve(r):
+        return server.serve(wavs[r], ctxs[r], init_code=0,
+                            rng=np.random.RandomState(cfg.seed))
+
+    serve(N_REQUESTS)                   # warm-up request
+    torch.cuda.synchronize()
+    K2.launches = 0
+    served, req_ms = [], []
+    for r in range(N_REQUESTS):
+        t0 = time.perf_counter()
+        served.append(serve(r))
+        req_ms.append(1e3 * (time.perf_counter() - t0))
+    k2_launches = K2.launches
+    if k2_launches != N_REQUESTS * wcfg.encoder_layers:
+        raise SystemExit(f"\"high\" requests launched K2 {k2_launches} "
+                         f"times")
+    pipe = ServingPipeline(shipped["engine"], vqvae_gpu, data_mean, data_std)
+    n_same = n_clips_same = 0
+    for r, (codes_r, poses_r) in enumerate(served):
+        feats = server.encode(wavs[r])
+        want, _ = pipe.serve(stage_test_audio(cfg, db,
+                                              wavlm=feats.cpu().numpy()),
+                             stage_test_context(db, ctxs[r]), init_code=0,
+                             rng=np.random.RandomState(cfg.seed))
+        if not np.array_equal(codes_r, want) or \
+                not np.isfinite(poses_r).all():
+            raise SystemExit(f"\"high\" request {r}: codes differ from "
+                             f"host-staged serving of the card's features")
+        same = codes_r == shipped["codes"][r]
+        n_same += int(same.sum())
+        n_clips_same += int(same.all())
+    agreement = n_same / (N_REQUESTS * W * 30)
+
+    t0 = time.time()
+    enc_cpu = WavLM(wcfg, device="cpu")
+    enc_cpu.load_state_dict(shipped["enc_cpu"].state_dict())
+    x = torch.as_tensor(wavs[0][:2]).float() / 32768.0
+    err = float((enc_gpu(x.to(dev)).cpu() - enc_cpu(x)).abs().max())
+    del enc_cpu
+    vs_highest = float((server.encode(wavs[0]) - shipped["feats"])
+                       .abs().max())
+    encoder_ms = median_ms(lambda: server.encode(wavs[0]), 5, warmup=1)
+    log(f"phase 13 \"high\" serve p50 {statistics.median(req_ms):.3f} ms over"
+        f" {N_REQUESTS} requests; K2 launches {k2_launches} (float32); codes "
+        f"== host-staged serving of the card's \"high\" features; against "
+        f"phase 7's \"highest\" codes: index_agreement {agreement:.4f} "
+        f"({n_same}/{N_REQUESTS * W * 30}), clips_identical "
+        f"{n_clips_same}/{N_REQUESTS}; card \"high\" vs \"highest\" features "
+        f"max_abs_diff {vs_highest:.3e}; card vs CPU port \"high\", request "
+        f"0 windows 0-1: max_abs_err {err:.3e} (tol {FEAT_ATOL}, "
+        f"{time.time() - t0:.1f} s); encoder_ms={encoder_ms:.4f}")
+    if not err <= FEAT_ATOL:
+        raise SystemExit("card \"high\" features differ from the CPU port's")
+    log_profile("phase 13", lambda: serve(0))
+    return k2_launches
+
+
+def transcript(rng, seconds: float):
+    """A synthetic transcript: [(start_s, end_s, word)], ~2.7 words/s."""
+    vocab = ("so the idea is that we move our hands when we speak and this "
+             "motion follows the rhythm of the words you can see it here "
+             "right now because every gesture has a beat").split()
+    words, t = [], rng.uniform(0.0, 0.3)
+    while t < seconds - 0.2:
+        d = rng.uniform(0.12, 0.45)
+        words.append((round(t, 3), round(min(t + d, seconds), 3),
+                      vocab[rng.randint(len(vocab))]))
+        t += d + rng.uniform(0.02, 0.25)
+    return words
+
+
+def phase_transcript(dev, rng, shipped, server):
+    """Transcript ingress: a full-width random MiniLM written with
+    torch.save and read back by load_minilm; TranscriptContextStager
+    stages a 24 s transcript that feeds RawWavServer.serve of the shipped
+    preset. Returns K2 launches."""
+    import numpy as np
+    import torch
+    from qpgesture_tpu_torch.match.database import (stage_test_audio,
+                                                    stage_test_context)
+    from qpgesture_tpu_torch.models.minilm import (MiniLM, MiniLMConfig,
+                                                   load_minilm)
+    from qpgesture_tpu_torch.ops import flash_attention_cuda as K2
+    from qpgesture_tpu_torch.pipelines.database_builder import context_slots
+    from qpgesture_tpu_torch.serve import (ServingPipeline,
+                                           TranscriptContextStager)
+
+    words = transcript(rng, W * 4.0)
+    mcfg = MiniLMConfig()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        torch.manual_seed(SEED)
+        model = MiniLM(mcfg, device="cpu")
+        n_params = sum(p.numel() for p in model.parameters())
+        torch.save(model.state_dict(), os.path.join(tmp, "pytorch_model.bin"))
+        del model
+        vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+        vocab += sorted({w for _, _, w in words})
+        vocab += [f"filler{i}" for i in range(mcfg.vocab_size - len(vocab))]
+        with open(os.path.join(tmp, "vocab.txt"), "w") as f:
+            f.write("\n".join(vocab) + "\n")
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump({}, f)                   # paraphrase-MiniLM-L6-v2's
+        enc_gpu = load_minilm(tmp, device=dev)
+        enc_cpu = load_minilm(tmp, device="cpu")
+    stager = TranscriptContextStager(enc_gpu)
+    ctx = stager.stage(words, W)
+    torch.cuda.synchronize()
+    log(f"phase 14 set-up: MiniLM {n_params} parameters ({mcfg.num_layers} "
+        f"layers, D={mcfg.hidden_size}, vocab {mcfg.vocab_size}) through "
+        f"torch.save and load_minilm; transcript of {len(words)} words over "
+        f"{W * 4} s; {time.time() - t0:.1f} s")
+    ctx_cpu = TranscriptContextStager(enc_cpu).stage(words, W)
+    err = float(np.abs(ctx - ctx_cpu).max())
+    n_texts = len({t for w in range(W) for t in context_slots(
+        words, 4.0 * w, 4.0 * w + 4.0)})
+    stage_ms = median_ms(lambda: stager.stage(words, W), 3, warmup=0)
+    if ctx.shape != (W, 30, mcfg.hidden_size) or not err <= MINILM_ATOL:
+        raise SystemExit(f"MiniLM context {ctx.shape}: card vs CPU "
+                         f"max_abs_err {err:.3e}")
+
+    cfg, db, wav = shipped["cfg"], shipped["db"], shipped["wavs"][0]
+    K2.launches = 0
+    codes, poses = server.serve(wav, ctx, init_code=0,
+                                rng=np.random.RandomState(cfg.seed))
+    k2_launches = K2.launches
+    feats = server.encode(wav).cpu().numpy()
+    want, _ = ServingPipeline(server.engine, server.model).serve(
+        stage_test_audio(cfg, db, wavlm=feats), stage_test_context(db, ctx),
+        init_code=0, rng=np.random.RandomState(cfg.seed))
+    if not np.array_equal(codes, want) or not np.isfinite(poses).all():
+        raise SystemExit("transcript-staged codes differ from host-staged "
+                         "serving of the card's context")
+    same = codes == shipped["codes"][0]
+    log(f"phase 14 TranscriptContextStager(MiniLMEncoder) on the card: "
+        f"context {ctx.shape} of {n_texts} distinct slot texts, card vs CPU "
+        f"port max_abs_err {err:.3e} (tol {MINILM_ATOL}); stage_ms="
+        f"{stage_ms:.3f}; RawWavServer.serve with it: codes == host-staged "
+        f"serving of the card's context, K2 launches {k2_launches}; codes "
+        f"equal to phase 7's (random context) {int(same.sum())}/{same.size}")
+    return k2_launches
 
 
 def main() -> int:
@@ -897,10 +1347,10 @@ def main() -> int:
         state["t"] = eng._tables_impl(cfg, engine.devdb, ta, tc)
 
     def scan():
-        return eng._fuse_scan(cfg, S, engine.dev, state["t"], 0, None, None,
-                              np.eye(1, W * S, dtype=bool)[0],
-                              np.zeros(W * S, np.int32),
-                              np.zeros((W * S, 8, 16), np.float32))
+        return eng._fuse_scan_clips(cfg, S, 1, engine.dev, state["t"], None,
+                                    np.eye(1, W * S, dtype=bool)[0],
+                                    np.zeros(W * S, np.int32),
+                                    np.zeros((W * S, 8, 16), np.float32))
 
     codes_flat = torch.as_tensor(served[0][0].reshape(1, -1), device=dev)
     tables_ms = median_ms(tables, 10)
@@ -971,21 +1421,40 @@ def main() -> int:
     phase_wall("phase 7")
 
     # -- phase 8: the same at precision="default" (bfloat16 K2) -----------
-    phase_rawwav_default(dev, shipped, model_gpu, data_mean, data_std)
-    enc_cpu, feats_db = shipped["enc_cpu"], shipped["feats_db"]
-    del shipped
+    k2_launches += phase_rawwav_default(dev, shipped, model_gpu, data_mean,
+                                        data_std)
     phase_wall("phase 8")
 
     # -- phase 9: raw-wav serving, wavvq preset -----------------------------
-    phase_rawwav_wavvq(dev, rng, serving, db, cfg)
+    k1_launches += phase_rawwav_wavvq(dev, rng, serving, db, cfg)
     phase_wall("phase 9")
 
     # -- phase 10: generate CLI ----------------------------------------------
-    phase_generate(rng, bundle, codes, signature, feats_db, enc_cpu,
-                   model_cpu)
+    phase_generate(rng, bundle, codes, signature, shipped["feats_db"],
+                   shipped["enc_cpu"], model_cpu)
     phase_wall("phase 10")
 
-    # -- phase 11: the kernels line and the result --------------------------
+    # -- phase 11: batched serving ------------------------------------------
+    k1, k2, staged = phase_batch(dev, rng, serving, db, cfg, shipped,
+                                 model_gpu, data_mean, data_std)
+    k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
+    phase_wall("phase 11")
+
+    # -- phase 12: streaming pools and sessions -----------------------------
+    k1, k2 = phase_streaming(dev, serving, staged)
+    k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
+    phase_wall("phase 12")
+
+    # -- phase 13: the shipped preset at precision="high" --------------------
+    k2_launches += phase_high(dev, shipped, model_gpu, data_mean, data_std)
+    phase_wall("phase 13")
+
+    # -- phase 14: transcript -> MiniLM -> context ingress ------------------
+    k2_launches += phase_transcript(dev, rng, shipped, staged["server"])
+    del shipped, staged
+    phase_wall("phase 14")
+
+    # -- the kernels line and the result ------------------------------------
     kernels_line = {"kernels": [{
         "name": "levenshtein_matrix",
         "route": "cuda",

@@ -25,6 +25,7 @@ import torch
 
 from ..core import constants as C
 from ..core.config import MatchConfig
+from ..device import to_device
 from .geometry import ModeGeometry
 
 
@@ -39,7 +40,7 @@ def interp_coeffs(T: int, size: int) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def _index(x: np.ndarray, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(x, np.int64), device=device)
+    return to_device(np.asarray(x, np.int64), device)
 
 
 def _interpolate(x: torch.Tensor, size: int) -> torch.Tensor:
@@ -49,8 +50,8 @@ def _interpolate(x: torch.Tensor, size: int) -> torch.Tensor:
     if size == T:
         return x
     lo, w = interp_coeffs(T, size)
-    one_minus = torch.as_tensor(np.float32(1.0) - w, device=x.device)
-    w = torch.as_tensor(w, device=x.device)
+    one_minus = to_device(np.float32(1.0) - w, x.device)
+    w = to_device(w, x.device)
     lo = _index(lo, x.device)
     return (x[:, lo] * one_minus[None, :, None]
             + x[:, lo + 1] * w[None, :, None])
@@ -61,7 +62,7 @@ def _gather_steps(x: torch.Tensor, idx: np.ndarray,
     """x (W, T, ...) -> x[:, idx] (W, S, k, ...), zero where not valid."""
     n = x.shape[1]
     sel = x[:, _index(np.clip(idx, 0, n - 1), x.device)]
-    mask = torch.as_tensor(valid, device=x.device)
+    mask = to_device(valid, x.device)
     return torch.where(mask.view(1, *mask.shape, *([1] * (sel.dim() - 3))),
                        sel, 0)
 

@@ -14,7 +14,9 @@ matches a whole clip in two phases:
     prev_phase). Candidate selection for every (step, prev_code) is
     tabulated before the loop; each step then gathers its selection, runs
     the phase re-rank and chains the seed. The loop runs on the host and
-    its carry stays on the device: no step reads a device value back.
+    its carry stays on the device: no step reads a device value back. C
+    clips (or streams) run as C lanes of the same loop, each step
+    advancing every lane with batched gathers; one clip is one lane.
 
 Semantics are bit-matched to the JAX engine (qpgesture_tpu/match/engine.py):
 stable ranks, lowest-index tie order in every selection, integer-scaled
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from ..core.config import MatchConfig
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, resolve_device, to_device
 from ..ops.levenshtein_cuda import levenshtein_matrix
 from ..ops.ranking import rank, rank_np
 from .database import MatchDatabase
@@ -332,33 +334,50 @@ def _tree_sum(x: torch.Tensor) -> torch.Tensor:
 
 def _phase_continuity(prev: torch.Tensor, heads: torch.Tensor
                       ) -> torch.Tensor:
-    """prev (8, 16), heads (C, 8, 16) -> (C,) distances
-    cos_dist(concat(prev[-5:], head[:3]), concat(prev[-3:], head[:5]))."""
-    C = heads.shape[0]
-    a = torch.cat((prev[3:].expand(C, 5, 16), heads[:, :3]), 1).reshape(C, -1)
-    b = torch.cat((prev[5:].expand(C, 3, 16), heads[:, :5]), 1).reshape(C, -1)
-    n = torch.sqrt(_tree_sum(torch.cat((a * a, b * b))))      # (2C,)
+    """prev (C, 8, 16), heads (C, K, 8, 16) -> (C, K) distances
+    cos_dist(concat(prev[-5:], head[:3]), concat(prev[-3:], head[:5])), one
+    row of K candidates per lane. Elementwise operations and a fixed tree
+    sum, so a lane's values do not depend on C."""
+    C, K = heads.shape[:2]
+    a = torch.cat((prev[:, None, 3:].expand(C, K, 5, 16), heads[:, :, :3]),
+                  2).reshape(C, K, -1)
+    b = torch.cat((prev[:, None, 5:].expand(C, K, 3, 16), heads[:, :, :5]),
+                  2).reshape(C, K, -1)
+    n = torch.sqrt(_tree_sum(torch.cat((a * a, b * b), 1)))  # (C, 2K)
     n = torch.where(n > 0, n, torch.ones_like(n))
-    return 1.0 - _tree_sum((a / n[:C, None]) * (b / n[C:, None]))
+    return 1.0 - _tree_sum((a / n[:, :K, None]) * (b / n[:, K:, None]))
 
 
-def _fuse_scan(cfg: MatchConfig, n_steps: int, dev: DeviceDatabase,
-               tables: DeviceTables, init_code: int,
-               init_phase: Optional[np.ndarray],
-               rand_bits: Optional[np.ndarray],
-               reset_mask: Optional[np.ndarray] = None,
-               reset_code: Optional[np.ndarray] = None,
-               reset_phase: Optional[np.ndarray] = None):
-    """Phase 2: sequential rank fusion + phase re-rank + seed chain.
+def _fuse_scan_clips(cfg: MatchConfig, n_steps: int, clips: int,
+                     dev: DeviceDatabase, tables: DeviceTables,
+                     rand_bits: Optional[np.ndarray],
+                     reset_mask: np.ndarray, reset_code, reset_phase):
+    """Phase 2 for C independent clips run as lanes of one loop:
+    sequential rank fusion + phase re-rank + seed chain.
 
-    rand_bits and reset_mask/code/phase (each length Q) are host arrays, so
-    the loop branches on them without reading the device. reset_* re-seed
-    the chain at the flagged steps. Returns device tensors (blocks (Q, step),
-    phases (Q, 8, 16), votes (Q,))."""
+    The Q = C*L steps of the flat tables are C lanes of L steps each (the
+    JAX package vmaps one scan body over them). The loop runs on the host,
+    one iteration per step of a lane, and every iteration advances all C
+    lanes with batched gathers: the launches of one clip, C clips' work.
+    Each lane computes exactly what a solo run of its clip computes.
+
+    Selection is tabulated once on the flat tables. rand_bits (Q,) is a
+    host array (no-phase aud+txt mode; a lane picks its side with a
+    torch.where). reset_mask (Q,) is a host array, the same in every lane;
+    at its steps the lane's carry becomes reset_code / reset_phase ((Q,)
+    and (Q, 8, 16), host arrays or device tensors, read on the device only),
+    so seeds carried on the device never come back to the host. A lane
+    without a reset at step 0 starts from code 0 and a zero phase, as in
+    the JAX package. Returns device tensors (blocks (Q, step), phases
+    (Q, 8, 16), votes (Q,))."""
     use_phase, use_aud, use_txt = cfg.use_phase, cfg.use_aud, cfg.use_txt
     if not (use_aud or use_txt):
         raise ValueError("unsupported flag combination")
     Q = (tables.aud_rank if use_aud else tables.txt_rank).shape[0]
+    C = clips
+    if Q % C:
+        raise ValueError(f"{Q} steps do not split into {C} lanes")
+    L = Q // C
     # Cross-window seed geometry: the kept code result[num_frames_code]
     # (appended index num_frames_code-1) must land in the final step's block.
     seed_i = cfg.num_frames_code - 1
@@ -368,84 +387,114 @@ def _fuse_scan(cfg: MatchConfig, n_steps: int, dev: DeviceDatabase,
         f"clip_len/step_sz/num_frames_code geometry is unsupported "
         f"(need (num_frames_code-1)//step_sz == n_steps-1)")
     seed_off = seed_i % cfg.step_sz
+    mask = np.asarray(reset_mask, bool).reshape(C, L)
+    if not (mask == mask[:1]).all():
+        raise ValueError("the reset steps must be the same in every lane")
+    mask = mask[0]
     device = dev.sig_rank.device
-    sel_a, sel_b = _tabulate_selection(cfg, dev, tables, _int_scale(cfg))
 
-    # Indices stay 1-element device tensors used through index_select:
-    # indexing with a 0-d tensor would read it back to the host (a sync per
-    # gather), which is what the loop must not do.
-    def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-        return x.index_select(0, idx)
+    def lanes(x):
+        return None if x is None else x.reshape((C, L) + x.shape[1:])
 
-    def code_tensor(code) -> torch.Tensor:
-        return torch.full((1,), int(code), dtype=torch.int64, device=device)
+    sel_a, sel_b = map(lanes, _tabulate_selection(cfg, dev, tables,
+                                                  _int_scale(cfg)))
+    aud_block, txt_block = lanes(tables.aud_block), lanes(tables.txt_block)
+    aud_pos, txt_pos = lanes(tables.aud_pos), lanes(tables.txt_pos)
+    if mask.any():
+        reset_code = lanes(to_device(reset_code, device, torch.int64))
+        reset_phase = lanes(to_device(reset_phase, device, torch.float32))
+    if rand_bits is not None:
+        rand_bits = lanes(to_device(np.asarray(rand_bits) > 0, device))
 
-    prev_code = code_tensor(init_code)
-    prev_phase = torch.zeros((8, 16), dtype=torch.float32, device=device) \
-        if init_phase is None else torch.as_tensor(
-            np.asarray(init_phase, np.float32), device=device)
-    if reset_mask is not None:
-        reset_phase_d = torch.as_tensor(np.asarray(reset_phase, np.float32),
-                                        device=device)
-    zero_vote = torch.zeros((), dtype=torch.int32, device=device)
+    ar = torch.arange(C, device=device)
+    prev_code = torch.zeros((C,), dtype=torch.int64, device=device)
+    prev_phase = torch.zeros((C, 8, 16), dtype=torch.float32, device=device)
+    zero_vote = torch.zeros((C,), dtype=torch.int32, device=device)
     blocks, phases, votes = [], [], []
-    for q in range(Q):
-        if reset_mask is not None and reset_mask[q]:
-            prev_code = code_tensor(reset_code[q])
-            prev_phase = reset_phase_d[q]
+    for t in range(L):
+        if mask[t]:
+            prev_code = reset_code[:, t]
+            prev_phase = reset_phase[:, t]
         out_phase = prev_phase
         vote = zero_vote
         if not use_phase:
-            c = take(sel_a[q], prev_code)                      # (1,)
+            c = sel_a[:, t].gather(1, prev_code[:, None])[:, 0]   # (C,)
             if use_aud and use_txt:
-                side = tables.aud_block if rand_bits[q] > 0 \
-                    else tables.txt_block
+                block = torch.where(rand_bits[:, t, None],
+                                    aud_block[:, t][ar, c],
+                                    txt_block[:, t][ar, c])
             else:
-                side = tables.aud_block if use_aud else tables.txt_block
-            block = take(side[q], c)[0]
+                side = aud_block if use_aud else txt_block
+                block = side[:, t][ar, c]
         elif use_aud != use_txt:
             s_blk, s_pos, s_grid = (
-                (tables.aud_block, tables.aud_pos, dev.aud_ht) if use_aud
-                else (tables.txt_block, tables.txt_pos, dev.txt_ht))
-            order = take(sel_a[q], prev_code)[0]               # (2,)
-            pairs = take(s_grid, take(s_pos[q], order))        # (2, 2, 8, 16)
-            d = _phase_continuity(prev_phase, pairs[:, 0])
-            pick0 = d[0] <= d[1]
-            c = torch.where(pick0, order[:1], order[1:])
-            block = take(s_blk[q], c)[0]
-            out_phase = torch.where(pick0, pairs[0, 1], pairs[1, 1])
+                (aud_block, aud_pos, dev.aud_ht) if use_aud
+                else (txt_block, txt_pos, dev.txt_ht))
+            order = sel_a[:, t][ar, prev_code]                    # (C, 2)
+            pairs = s_grid[s_pos[:, t].gather(1, order)]    # (C, 2, 2, 8, 16)
+            d = _phase_continuity(prev_phase, pairs[:, :, 0])     # (C, 2)
+            pick0 = d[:, 0] <= d[:, 1]
+            c = torch.where(pick0, order[:, 0], order[:, 1])
+            block = s_blk[:, t][ar, c]
+            out_phase = torch.where(pick0[:, None, None], pairs[:, 0, 1],
+                                    pairs[:, 1, 1])
         else:
-            ca = take(sel_a[q], prev_code)
-            ct = take(sel_b[q], prev_code)
-            pa = take(dev.aud_ht, take(tables.aud_pos[q], ca))[0]  # (2, 8, 16)
-            pt = take(dev.txt_ht, take(tables.txt_pos[q], ct))[0]
-            d = _phase_continuity(prev_phase, torch.stack((pa[0], pt[0])))
-            pick_aud = d[0] <= d[1]
-            block = torch.where(pick_aud, take(tables.aud_block[q], ca)[0],
-                                take(tables.txt_block[q], ct)[0])
-            out_phase = torch.where(pick_aud, pa[1], pt[1])
+            ca = sel_a[:, t][ar, prev_code]
+            ct = sel_b[:, t][ar, prev_code]
+            pa = dev.aud_ht[aud_pos[:, t][ar, ca]]                # (C, 2, 8, 16)
+            pt = dev.txt_ht[txt_pos[:, t][ar, ct]]
+            d = _phase_continuity(prev_phase,
+                                  torch.stack((pa[:, 0], pt[:, 0]), 1))
+            pick_aud = d[:, 0] <= d[:, 1]
+            block = torch.where(pick_aud[:, None], aud_block[:, t][ar, ca],
+                                txt_block[:, t][ar, ct])
+            out_phase = torch.where(pick_aud[:, None, None], pa[:, 1],
+                                    pt[:, 1])
             vote = torch.where(pick_aud, 0, 1).to(torch.int32)
         # Seed chaining: within a window the next step continues from the
         # last appended code; across a window boundary the seed is the
         # num_frames_code-th kept code, at offset seed_off of the final
         # step's block (GestureKNN.py:789-802).
-        is_last = q % n_steps == n_steps - 1
-        prev_code = block[seed_off:seed_off + 1] if is_last else block[-1:]
+        is_last = t % n_steps == n_steps - 1
+        prev_code = block[:, seed_off] if is_last else block[:, -1]
         prev_phase = out_phase
         blocks.append(block)
         phases.append(out_phase)
         votes.append(vote)
-    return torch.stack(blocks), torch.stack(phases), torch.stack(votes)
+    flat = lambda xs: torch.stack(xs, 1).reshape((Q,) + xs[0].shape[1:])
+    return flat(blocks), flat(phases), flat(votes)
+
+
+def _solo_resets(Q: int, init_code, init_phase,
+                 reset_mask: Optional[np.ndarray] = None,
+                 reset_code: Optional[np.ndarray] = None,
+                 reset_phase: Optional[np.ndarray] = None):
+    """One clip's reset arrays with its initial seed as a reset at step 0
+    (a reset already there wins, as it overrides the initial carry in the
+    JAX scan). init_phase None is the zero phase."""
+    mask = np.zeros((Q,), bool) if reset_mask is None else \
+        np.array(reset_mask, bool)
+    code = np.zeros((Q,), np.int64) if reset_code is None else \
+        np.array(reset_code, np.int64)
+    phase = np.zeros((Q, 8, 16), np.float32) if reset_phase is None else \
+        np.array(reset_phase, np.float32)
+    if not mask[0]:
+        mask[0] = True
+        code[0] = int(init_code)
+        if init_phase is not None:
+            phase[0] = init_phase
+    return mask, code, phase
 
 
 def _predict_impl(cfg: MatchConfig, n_steps: int, dev: DeviceDatabase,
                   devdb: DeviceMatchDB, test_audio, test_context,
-                  init_code, init_phase, rand_bits,
-                  reset_mask=None, reset_code=None, reset_phase=None):
-    """The whole clip: candidate tables + fused scan."""
+                  rand_bits, reset_mask, reset_code, reset_phase,
+                  clips: int = 1):
+    """C clips (or streams): candidate tables for all their steps at once,
+    then the lane-batched fused scan."""
     tables = _tables_impl(cfg, devdb, test_audio, test_context)
-    return _fuse_scan(cfg, n_steps, dev, tables, init_code, init_phase,
-                      rand_bits, reset_mask, reset_code, reset_phase)
+    return _fuse_scan_clips(cfg, n_steps, clips, dev, tables, rand_bits,
+                            reset_mask, reset_code, reset_phase)
 
 
 class CodeKNNEngine:
@@ -514,16 +563,16 @@ class CodeKNNEngine:
 
     def stage_queries(self, test_audio: Optional[np.ndarray],
                       test_context: Optional[np.ndarray]):
-        """Host queries -> device tensors (None for an unused side)."""
+        """Host queries -> device tensors (None for an unused side), queued
+        without a host sync."""
         cfg, dev = self.cfg, self.device
         ta = tc = None
         if cfg.use_aud:
             dtype = torch.int32 if cfg.audio_mode == "wavvq_feat" \
                 else torch.float32
-            ta = torch.as_tensor(test_audio, dtype=dtype, device=dev)
+            ta = to_device(test_audio, dev, dtype)
         if cfg.use_txt:
-            tc = torch.as_tensor(test_context, dtype=torch.float32,
-                                 device=dev)
+            tc = to_device(test_context, dev, torch.float32)
         return ta, tc
 
     def predict_device(self, test_audio: Optional[np.ndarray],
@@ -545,23 +594,153 @@ class CodeKNNEngine:
         rand_np, reset = self._chain_inputs(W, S, rng)
         ta, tc = self.stage_queries(test_audio, test_context)
         blocks, phases, votes = _predict_impl(
-            cfg, S, self.dev, self.devdb, ta, tc, init_code, init_phase,
-            rand_np, *reset)
+            cfg, S, self.dev, self.devdb, ta, tc, rand_np,
+            *_solo_resets(W * S, init_code, init_phase, *reset))
         codes = blocks.reshape(W, S * cfg.step_sz)[:, :cfg.num_frames_code]
         return codes.to(torch.int32), phases, votes, (W, S)
+
+    def _result(self, codes: np.ndarray, phases: torch.Tensor,
+                votes: torch.Tensor, W: int, S: int) -> OracleResult:
+        """OracleResult of one clip from its host codes (W, 30) and its
+        device phases (W*S, 8, 16) and votes (W*S,)."""
+        cfg = self.cfg
+        phases_np = None
+        if cfg.use_phase:
+            phases_np = phases.cpu().numpy().reshape(W, S, 8, 16)[:, -1]
+        votes_np = votes.cpu().numpy().reshape(W, S) \
+            if (cfg.use_phase and cfg.use_aud and cfg.use_txt) else None
+        return OracleResult(codes=np.asarray(codes, np.int32),
+                            phases=phases_np, votes=votes_np)
 
     def predict(self, test_audio: Optional[np.ndarray],
                 test_context: Optional[np.ndarray] = None,
                 init_code: Optional[int] = None,
                 init_phase: Optional[np.ndarray] = None,
                 rng: Optional[np.random.RandomState] = None) -> OracleResult:
-        cfg = self.cfg
         codes, phases, votes, (W, S) = self.predict_device(
             test_audio, test_context, init_code, init_phase, rng)
-        phases_np = None
-        if cfg.use_phase:
-            phases_np = phases.cpu().numpy().reshape(W, S, 8, 16)[:, -1]
-        votes_np = votes.cpu().numpy().reshape(W, S) \
-            if (cfg.use_phase and cfg.use_aud and cfg.use_txt) else None
-        return OracleResult(codes=codes.cpu().numpy(), phases=phases_np,
-                            votes=votes_np)
+        return self._result(codes.cpu().numpy(), phases, votes, W, S)
+
+    def _batch_inputs(self, C: int, W: int, S: int,
+                      clip_audio: Optional[np.ndarray],
+                      clip_context: Optional[np.ndarray],
+                      init_codes: Optional[np.ndarray],
+                      init_phases: Optional[np.ndarray],
+                      rng: Optional[np.random.RandomState]):
+        """Flattened queries + per-clip (and, for non-chaining configs,
+        per-window) reset arrays + rand bits for a C-clip batch, all host
+        arrays. The rng draws clip inits first, then the per-window
+        re-seeds, then the rand bits (the JAX package's order)."""
+        cfg = self.cfg
+        rng = rng or np.random.RandomState(cfg.seed)
+        oracle = CodeKNNOracle(self.db)
+        if init_codes is None:
+            draws = [oracle.init_code_phase(rng) for _ in range(C)]
+            init_codes = np.array([d[0] for d in draws], np.int32)
+            if cfg.use_phase and init_phases is None:
+                init_phases = np.stack([d[1] for d in draws])
+        if init_phases is None:
+            init_phases = np.zeros((C, 8, 16), np.float32)
+
+        Q = C * W * S
+        reset_mask = np.zeros((Q,), bool)
+        reset_code = np.zeros((Q,), np.int32)
+        reset_phase = np.zeros((Q, 8, 16), np.float32)
+        reset_mask[::W * S] = True
+        reset_code[::W * S] = init_codes
+        reset_phase[::W * S] = init_phases
+        if not cfg.chain_windows:
+            # non-chaining modes re-seed every window, not just every clip
+            for c in range(C):
+                for w in range(1, W):
+                    code_w, phase_w = oracle.init_code_phase(rng)
+                    q0 = (c * W + w) * S
+                    reset_mask[q0] = True
+                    reset_code[q0] = code_w
+                    if phase_w is not None:
+                        reset_phase[q0] = phase_w
+
+        flat_audio = None if clip_audio is None else \
+            clip_audio.reshape((C * W,) + clip_audio.shape[2:])
+        flat_ctx = None if clip_context is None else \
+            clip_context.reshape((C * W,) + clip_context.shape[2:])
+        rand_bits = None
+        if not cfg.use_phase and cfg.use_aud and cfg.use_txt:
+            rand_bits = (rng.rand(Q) > 0.5).astype(np.int32)
+        return (flat_audio, flat_ctx, reset_mask, reset_code, reset_phase,
+                rand_bits)
+
+    def _batch_unpack(self, blocks: torch.Tensor, phases: torch.Tensor,
+                      votes: torch.Tensor, C: int, W: int, S: int) -> list:
+        cfg = self.cfg
+        codes = blocks.reshape(C, W, S * cfg.step_sz)[
+            :, :, :cfg.num_frames_code].cpu().numpy()
+        phases = phases.reshape(C, W * S, 8, 16)
+        votes = votes.reshape(C, W * S)
+        return [self._result(codes[c], phases[c], votes[c], W, S)
+                for c in range(C)]
+
+    def predict_batch(self, clip_audio: Optional[np.ndarray],
+                      clip_context: Optional[np.ndarray] = None,
+                      init_codes: Optional[np.ndarray] = None,
+                      init_phases: Optional[np.ndarray] = None,
+                      rng: Optional[np.random.RandomState] = None) -> list:
+        """Batched serving: match C independent clips together.
+
+        clip_audio: (C, W, S, ...) staged queries (same W per clip);
+        init_codes: (C,) seeds (drawn like the reference when omitted).
+        Phase 1 runs once over all C*W*S steps; the fusion scan runs the
+        clips as C lanes of one loop (_fuse_scan_clips), each lane starting
+        from its clip's reset. Returns a list of C OracleResults.
+
+        The rng draws clip inits first, then per-window re-seeds for
+        non-chaining configs, then rand bits (no-phase aud+txt mode):
+        per-clip results equal sequential predict() when the inits (and
+        bits) are passed explicitly, not when one rng is shared across both
+        paths in the non-chaining or random-vote configurations."""
+        cfg = self.cfg
+        lead = clip_audio if clip_audio is not None else clip_context
+        C, W, S = lead.shape[:3]
+        (flat_audio, flat_ctx, reset_mask, reset_code, reset_phase,
+         rand_bits) = self._batch_inputs(C, W, S, clip_audio, clip_context,
+                                         init_codes, init_phases, rng)
+        ta, tc = self.stage_queries(flat_audio, flat_ctx)
+        blocks, phases, votes = _predict_impl(
+            cfg, S, self.dev, self.devdb, ta, tc, rand_bits, reset_mask,
+            reset_code, reset_phase, clips=C)
+        return self._batch_unpack(blocks, phases, votes, C, W, S)
+
+    # Serving buckets of the JAX package: clip lengths (in 4 s windows)
+    # padded up to the next bucket so that XLA compiles one program per
+    # bucket. Eager PyTorch compiles nothing, so here a bucket only pads.
+    BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+
+    def predict_bucketed(self, test_audio: Optional[np.ndarray],
+                         test_context: Optional[np.ndarray] = None,
+                         init_code: Optional[int] = None,
+                         init_phase: Optional[np.ndarray] = None,
+                         rng: Optional[np.random.RandomState] = None,
+                         buckets: Optional[tuple] = None) -> OracleResult:
+        """predict() with the window count padded to a bucket, for callers
+        of the JAX package's surface. The padding windows (copies of the
+        last one) come after the real ones, so the seed chain through the
+        real windows and their rng draws are untouched: results are
+        identical to predict(). In eager PyTorch the padding saves no
+        compile; it only costs the padded windows' work."""
+        buckets = buckets or self.BUCKETS
+        lead = test_audio if test_audio is not None else test_context
+        W = lead.shape[0]
+        Wb = next((b for b in buckets if b >= W), None)
+        if Wb is None:  # beyond the largest bucket: round up to a multiple
+            step = buckets[-1]
+            Wb = ((W + step - 1) // step) * step
+
+        def _pad(x):
+            if x is None or Wb == W:
+                return x
+            return np.concatenate([x, np.repeat(x[-1:], Wb - W, axis=0)])
+
+        codes, phases, votes, (_, S) = self.predict_device(
+            _pad(test_audio), _pad(test_context), init_code, init_phase, rng)
+        return self._result(codes[:W].cpu().numpy(), phases[:W * S],
+                            votes[:W * S], W, S)

@@ -1,14 +1,15 @@
 """Carry weights between the JAX parameter trees and the port.
 
 The port's modules use the reference's parameter names (the VQ-VAE's,
-Microsoft's WavLM's, fairseq's vq-wav2vec's), so reference checkpoints load
-with ``load_state_dict`` (``load_vqvae_checkpoint`` here,
-``models/wavlm.load_wavlm_checkpoint``,
-``models/vq_wav2vec.load_vq_wav2vec_checkpoint``). The ``*_from_jax``
-functions are the inverses of the JAX package's converters
+Microsoft's WavLM's, fairseq's vq-wav2vec's, Hugging Face BERT's), so
+reference checkpoints load with ``load_state_dict``
+(``load_vqvae_checkpoint`` here, ``models/wavlm.load_wavlm_checkpoint``,
+``models/vq_wav2vec.load_vq_wav2vec_checkpoint``,
+``models/minilm.load_minilm``). The ``*_from_jax`` functions are the
+inverses of the JAX package's converters
 (``models/torch_convert.convert_vqvae``, ``models/wavlm.convert_wavlm``,
-``models/vq_wav2vec.convert_vq_wav2vec``): they map a flax parameter tree
-back to a state_dict.
+``models/vq_wav2vec.convert_vq_wav2vec``, ``models/minilm.convert_minilm``):
+they map a flax parameter tree back to a state_dict.
 
 Layout facts (the inverse of those in torch_convert):
   * flax conv kernel (k, in, out) -> Conv1d weight (out, in, k);
@@ -25,6 +26,7 @@ import torch
 
 from ..core.config import VQVAEConfig
 from ..device import DeviceLike
+from .minilm import MiniLMConfig
 from .vq_wav2vec import VQWav2VecConfig
 from .vqvae import VQVAE
 from .wavlm import WavLMConfig, weight_norm
@@ -170,6 +172,29 @@ def vq_wav2vec_state_dict_from_jax(variables: Dict, cfg: VQWav2VecConfig
         _dense(vq["proj_out"], f"{pre}.{depth - 1}", sd)
     else:
         _dense(vq["proj_out"], pre, sd)
+    return sd
+
+
+def minilm_state_dict_from_jax(variables: Dict, cfg: MiniLMConfig
+                               ) -> Dict[str, torch.Tensor]:
+    """The JAX package's MiniLMJax parameters (numpy leaves) -> the port's
+    (and Hugging Face BertModel's) state_dict, without the pooler: the
+    inverse of ``convert_minilm``."""
+    params = variables.get("params", variables)
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("word", "position", "token_type"):
+        sd[f"embeddings.{name}_embeddings.weight"] = _t(
+            params[f"{name}_embeddings"])
+    _layer_norm(params["embed_ln"], "embeddings.LayerNorm", sd)
+    for i in range(cfg.num_layers):
+        p, base = params[f"layer{i}"], f"encoder.layer.{i}"
+        for name in ("query", "key", "value"):
+            _dense(p["self_attn"][name], f"{base}.attention.self.{name}", sd)
+        _dense(p["attn_output"], f"{base}.attention.output.dense", sd)
+        _layer_norm(p["attn_ln"], f"{base}.attention.output.LayerNorm", sd)
+        _dense(p["intermediate"], f"{base}.intermediate.dense", sd)
+        _dense(p["output"], f"{base}.output.dense", sd)
+        _layer_norm(p["output_ln"], f"{base}.output.LayerNorm", sd)
     return sd
 
 

@@ -18,7 +18,7 @@ checkpoint loads with ``load_state_dict`` (``load_wavlm_checkpoint``).
 Numerics follow the JAX package, which is what the port is held against:
 every LayerNorm uses flax's default epsilon 1e-6 (the published torch
 WavLM uses torch's 1e-5); the group norm and the wav normalisation use the
-1e-5 the JAX code writes. Two of the JAX package's precisions are ported:
+1e-5 the JAX code writes. The JAX package's three precisions are ported:
 
   * ``"highest"``: true float32 contractions, TF32 off (the features feed
     cosine ranks);
@@ -37,8 +37,14 @@ WavLM uses torch's 1e-5); the group norm and the wav normalisation use the
     computes DEFAULT in float32 (only the attention kernel rounds there),
     and the tensor cores' float32 accumulation is not IEEE round-to-nearest
     at every step.
-
-``"high"`` (bf16x3) is not ported yet.
+  * ``"high"``: ``Precision.HIGH`` on a TPU, bf16x3. Each float32 operand
+    x splits into hi = bf16(x) and lo = bf16(x - hi), and a contraction is
+    hi.hi + (hi.lo + lo.hi): three bfloat16 products with float32 sums
+    and outputs, the GEMMs and unfolded convolutions of ``"default"``
+    (the lo.lo term, ~2^-16 relative, is dropped). Attention goes through
+    K2 in float32, as the JAX wrapper passes float32 whenever the precision
+    is not ``"default"``; the eager attention is float32 too. On a CPU XLA
+    computes HIGH in float32.
 """
 from __future__ import annotations
 
@@ -56,7 +62,7 @@ from ..ops import flash_attention_cuda
 
 LN_EPS = 1e-6       # flax nn.LayerNorm's default, as the JAX package uses
 NORM_EPS = 1e-5     # group norm and wav normalisation, as the JAX code writes
-PRECISIONS = ("highest", "default")
+PRECISIONS = ("highest", "high", "default")
 
 
 @dataclass(frozen=True)
@@ -82,8 +88,9 @@ class WavLMConfig:
     max_distance: int = 800
     gru_rel_pos: bool = True
     # "highest" = true float32 everywhere (TF32 off); "default" = bfloat16
-    # operands, float32 sums and outputs in every contraction (the module
-    # docstring). "high" (bf16x3 in the JAX package) is not ported yet.
+    # operands, float32 sums and outputs in every contraction; "high" =
+    # bf16x3, three such products of hi/lo bfloat16 splits (the module
+    # docstring).
     precision: str = "highest"
     # "flash": kernel K2 (its plain version on the CPU); "eager": the
     # materialised softmax, the JAX package's "xla" branch; "auto": "flash"
@@ -99,16 +106,31 @@ class WavLMConfig:
                    max_distance=1280)
 
 
-def matmul_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b for (M, K) @ (K, N) or (G, M, K) @ (G, K, N): operands rounded
-    to bfloat16, float32 sums and output. On the card one cuBLAS bfloat16
-    GEMM that writes float32; on the CPU a float32 product of the rounded
-    operands (exact products, float32 sums)."""
-    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+def _mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b for (M, K) @ (K, N) or (G, M, K) @ (G, K, N) bfloat16
+    operands, with float32 sums and output: a
+    cuBLAS bfloat16 GEMM that writes float32 on the card, a float32
+    product of the (exactly widened) operands on the CPU."""
     mm = torch.mm if a.dim() == 2 else torch.bmm
     if a.is_cuda:
         return mm(a, b, out_dtype=torch.float32)
     return mm(a.float(), b.float())
+
+
+def split_bf16(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x = hi + lo + O(2^-16 |x|): hi = bf16(x), lo = bf16(x - hi)."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
+
+
+def matmul_bf16x3(a: torch.Tensor, b) -> torch.Tensor:
+    """float32 a @ b at the "high" precision (bf16x3): a_hi.b_hi + (a_hi.b_lo +
+    a_lo.b_hi), three bfloat16 products with float32 sums and outputs. `b`
+    is a float32 tensor or its (hi, lo) split (cached weight copies)."""
+    a_hi, a_lo = split_bf16(a)
+    b_hi, b_lo = split_bf16(b) if isinstance(b, torch.Tensor) else b
+    return _mm_bf16(a_hi, b_hi) + (_mm_bf16(a_hi, b_lo)
+                                   + _mm_bf16(a_lo, b_hi))
 
 
 def bf16_copy(module: nn.Module, key: str, make) -> torch.Tensor:
@@ -125,14 +147,26 @@ def bf16_copy(module: nn.Module, key: str, make) -> torch.Tensor:
     return hit[1]
 
 
+def matmul_weight(module: nn.Module, x: torch.Tensor, key: str, make,
+                  precision: str) -> torch.Tensor:
+    """x @ w at "default" or "high", w = make() a float32 weight of
+    `module` whose bfloat16 copies (hi, and lo for "high") are cached."""
+    hi = bf16_copy(module, key, make)
+    if precision == "default":
+        return _mm_bf16(x.to(torch.bfloat16), hi)
+    lo = bf16_copy(module, key + ".lo", lambda: make() - hi.float())
+    return matmul_bf16x3(x, (hi, lo))
+
+
 def linear(layer: nn.Linear, x: torch.Tensor, precision: str) -> torch.Tensor:
-    """layer(x) at `precision`: "default" multiplies bfloat16 operands with
-    float32 sums and adds the float32 bias, as flax's Dense does."""
+    """layer(x) at `precision`: "default" and "high" multiply bfloat16
+    operands with float32 sums and add the float32 bias, as flax's Dense
+    does."""
     if precision == "highest":
         return layer(x)
-    w = bf16_copy(layer, "weight", lambda: layer.weight)
-    y = matmul_bf16(x.reshape(-1, x.shape[-1]), w.t())
-    y = y.reshape(*x.shape[:-1], w.shape[0])
+    y = matmul_weight(layer, x.reshape(-1, x.shape[-1]), "weight",
+                      lambda: layer.weight.t(), precision)
+    y = y.reshape(*x.shape[:-1], y.shape[-1])
     return y if layer.bias is None else y + layer.bias
 
 
@@ -168,32 +202,30 @@ class ConvFeatureExtractor(nn.Module):
         self.precision = cfg.precision
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
-        if self.precision != "highest":
-            return self._forward_bf16(wav)
-        x = wav[:, None, :]
-        for block in self.conv_layers:
-            x = block(x)
-        return x.transpose(1, 2)
-
-    def _forward_bf16(self, wav: torch.Tensor) -> torch.Tensor:
+        if self.precision == "highest":
+            x = wav[:, None, :]
+            for block in self.conv_layers:
+                x = block(x)
+            return x.transpose(1, 2)
         x = wav[:, :, None]                                  # (B, L, 1)
         for block in self.conv_layers:
-            x = conv_block_bf16(block, x)
+            x = conv_block_bf16(block, x, self.precision)
         return x
 
 
-def conv_block_bf16(block: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
-    """One extractor block at the "default" precision, channels last
-    (B, L, C) -> (B, L', C'): the conv is one GEMM over its unfolded
-    windows (bfloat16 operands, float32 out), then the float32 norm and
-    GELU."""
+def conv_block_bf16(block: nn.Sequential, x: torch.Tensor,
+                    precision: str = "default") -> torch.Tensor:
+    """One extractor block at the "default" or "high" precision, channels
+    last (B, L, C) -> (B, L', C'): the conv is a GEMM over its unfolded
+    windows (bfloat16 operands, float32 out; three of them for "high"),
+    then the float32 norm and GELU."""
     conv, _, norm, act = block
     k, stride = conv.kernel_size[0], conv.stride[0]
     cols = x.unfold(1, k, stride)                            # (B, L', C, k)
     B, L = cols.shape[:2]
-    w = bf16_copy(conv, "weight",
-                  lambda: conv.weight.reshape(conv.out_channels, -1))
-    y = matmul_bf16(cols.reshape(B * L, -1), w.t()).view(B, L, -1)
+    y = matmul_weight(conv, cols.reshape(B * L, -1), "weight",
+                      lambda: conv.weight.reshape(conv.out_channels, -1).t(),
+                      precision).view(B, L, -1)
     if conv.bias is not None:
         y = y + conv.bias
     if isinstance(norm, nn.Sequential):                      # layer norm
@@ -295,7 +327,7 @@ class WavLMAttention(nn.Module):
         if impl == "flash" and position_bias is not None:
             # the kernel's bias layout and dtype, made once in layer 0 and
             # passed down the stack as it is
-            kd = torch.float32 if prec == "highest" else torch.bfloat16
+            kd = torch.bfloat16 if prec == "default" else torch.float32
             position_bias = flash_attention_cuda.prepare_bias(position_bias,
                                                               kd)
             out = flash_attention_cuda.gated_flash_attention(
@@ -303,9 +335,10 @@ class WavLMAttention(nn.Module):
                 position_bias, gate, sm_scale=scale, kernel_dtype=kd)
             out = out.transpose(1, 2)                          # (B,T,H,hd)
         else:
-            # "default": bfloat16 operands of both products, float32 sums
-            rnd = (lambda t: t) if prec == "highest" else \
-                (lambda t: t.to(torch.bfloat16).float())
+            # "default": bfloat16 operands of both products, float32 sums;
+            # float32 otherwise, as K2 runs for "high"
+            rnd = (lambda t: t.to(torch.bfloat16).float()) \
+                if prec == "default" else (lambda t: t)
             scores = torch.einsum("bthd,bshd->bhts", rnd(q * scale), rnd(k))
             if position_bias is not None:
                 bias = position_bias[None]                     # (1,H,T,T)
@@ -370,19 +403,19 @@ class WeightNormConv1d(nn.Module):
         return F.conv1d(x, self.weight(), self.bias, padding=self.padding,
                         groups=self.groups)
 
-    def forward_bf16(self, x: torch.Tensor) -> torch.Tensor:
-        """The "default" precision, channels last: (B, T, C) -> (B, T, C)
-        with SamePad's trim for an even kernel applied, one batched GEMM
-        (one per group) over the unfolded windows."""
+    def forward_bf16(self, x: torch.Tensor,
+                     precision: str = "default") -> torch.Tensor:
+        """The "default" or "high" precision, channels last: (B, T, C) ->
+        (B, T, C) with SamePad's trim for an even kernel applied, batched
+        GEMMs (one per group) over the unfolded windows."""
         B, T, C = x.shape
         G, k = self.groups, self.weight_v.shape[-1]
         cg = C // G
-        w = bf16_copy(self, "weight", lambda: self.weight().reshape(
-            G, cg, cg * k).transpose(1, 2))                  # (G, cg*k, cg)
         xp = F.pad(x, (0, 0, self.padding, self.padding))
         cols = xp.unfold(1, k, 1)[:, :T]                     # (B, T, C, k)
         cols = cols.reshape(B * T, G, cg * k).transpose(0, 1)
-        y = matmul_bf16(cols, w)                             # (G, B*T, cg)
+        y = matmul_weight(self, cols, "weight", lambda: self.weight().reshape(
+            G, cg, cg * k).transpose(1, 2), precision)       # (G, B*T, cg)
         return y.transpose(0, 1).reshape(B, T, C) + self.bias
 
 
@@ -423,9 +456,8 @@ class WavLM(nn.Module):
                  device: DeviceLike = "cuda"):
         super().__init__()
         if cfg.precision not in PRECISIONS:
-            raise NotImplementedError(
-                f"WavLM precision {cfg.precision!r} is not ported yet "
-                f"(have {PRECISIONS})")
+            raise ValueError(f"WavLM precision {cfg.precision!r} is not one "
+                             f"of the JAX package's {PRECISIONS}")
         self.cfg = cfg
         dev = resolve_device(device)
         self.feature_extractor = ConvFeatureExtractor(cfg)
@@ -457,7 +489,8 @@ class WavLM(nn.Module):
             x_conv = self.encoder.pos_conv(
                 feats.transpose(1, 2)).transpose(1, 2)
         else:
-            x_conv = F.gelu(self.encoder.pos_conv[0].forward_bf16(feats))
+            x_conv = F.gelu(self.encoder.pos_conv[0].forward_bf16(
+                feats, cfg.precision))
         x = feats + x_conv
         if not cfg.layer_norm_first:
             x = self.encoder.layer_norm(x)

@@ -3,20 +3,22 @@
 The port of part of ``qpgesture_tpu/pipelines/database_builder.py``: test
 audio windowing (make_test_data.py:18-33), feature extraction with the
 port's encoders (wav_to_wavlm, make_beat_dataset.py:337-385; wav_to_vq,
-:388-429) and the hashed stand-in sentence embedding. The rest of the
-builder is still to be ported.
+:388-429), the word -> code-slot bucketing of the transcript context
+(``context_slots``) and the sentence embeddings (``minilm_embed_fn``, and
+the hashed stand-in). The rest of the builder is still to be ported.
 """
 from __future__ import annotations
 
 import math
 import zlib
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..core import constants as C
+from ..device import DeviceLike
 
 
 @torch.no_grad()
@@ -56,6 +58,38 @@ def window_test_audio(wav: np.ndarray, n_frames: int = 240, fps: int = C.FPS,
     return np.stack([wav[math.floor(i * n_frames / fps * sr):
                          math.floor(i * n_frames / fps * sr) + alen]
                      for i in range(n_sub)]).astype(np.float32)
+
+
+def context_slots(words: List[Tuple[float, float, str]], start_time: float,
+                  end_time: float, stride_time: int = 4,
+                  num_codes: int = C.NUM_FRAMES_CODE,
+                  step_sz: int = 8) -> List[str]:
+    """Word -> code-slot bucketing (make_txt_dataset, make_beat_dataset.py:
+    548-565): a word lands in the slot of its within-window midpoint; each
+    code's context is the join of words within +-3 slots."""
+    slots: List[List[str]] = [[] for _ in range(num_codes)]
+    for (s, e, w) in words:
+        if not (start_time <= (s + e) / 2 < end_time):
+            continue
+        e_mod = e % stride_time if e % stride_time != 0 else stride_time
+        idx = int((s % stride_time + e_mod) * 60 / 2 / step_sz)
+        slots[min(idx, num_codes - 1)].append(w)
+    out = []
+    for j in range(num_codes):
+        lo = max(j - 3, 0)
+        hi = min(j + 4, num_codes)
+        out.append(" ".join(w for sl in slots[lo:hi] for w in sl))
+    return out
+
+
+def minilm_embed_fn(checkpoint_dir: str, device: DeviceLike = "cuda"):
+    """MiniLM sentence embeddings on the device: the reference's
+    paraphrase-MiniLM-L6-v2 stack (make_beat_dataset.py:446-447) as
+    models/minilm.py runs it (host WordPiece, BERT encoder and mean pooling
+    on `device`). Needs the checkpoint directory (config.json + vocab.txt
+    + weights); returns texts -> (n, 384)."""
+    from ..models.minilm import load_minilm
+    return load_minilm(checkpoint_dir, device=device)
 
 
 def hashed_embed_fn(dim: int = C.CONTEXT_DIM):

@@ -166,3 +166,101 @@ def test_engine_on_card_matches_cpu(cuda, preset):
     np.testing.assert_array_equal(got.codes, want.codes)
     if want.phases is not None:
         np.testing.assert_array_equal(got.phases, want.phases)
+
+
+def _wavvq_engines(cuda, n_test=4):
+    rng = np.random.RandomState(14)
+    fx = make_fixture(rng, n_seq=6, n_test=n_test, codebook=64)
+    cfg = dataclasses.replace(MATCH_PRESETS["wavvq"], codebook_size=64)
+    db = stage_database(cfg, fx["bundle"], fx["codes"], fx["signature"],
+                        wavvq=fx["wavvq"])
+    ta = stage_test_audio(cfg, db, wavvq=fx["test_wavvq"])
+    tc = stage_test_context(db, fx["test_context"])
+    return (CodeKNNEngine(cfg, db, device="cpu"),
+            CodeKNNEngine(cfg, db, device=cuda), ta, tc)
+
+
+def test_lane_scan_on_card_matches_cpu(cuda):
+    """predict_batch (4 lanes x 1 window, 2 x 2) on staged wavvq tables,
+    whose distances are integers: the card's lanes equal the CPU's codes
+    and phases exactly, and launch K1 once per batch."""
+    cpu, card, ta, tc = _wavvq_engines(cuda)
+    for C in (4, 2):
+        clips = lambda x: x.reshape((C, -1) + x.shape[1:])
+        inits = np.arange(C, dtype=np.int32) * 7
+        want = cpu.predict_batch(clips(ta), clips(tc), init_codes=inits)
+        before = levenshtein_cuda.launches
+        got = card.predict_batch(clips(ta), clips(tc), init_codes=inits)
+        assert levenshtein_cuda.launches == before + 1
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.codes, w.codes)
+            np.testing.assert_array_equal(g.phases, w.phases)
+            np.testing.assert_array_equal(g.votes, w.votes)
+
+
+def test_streaming_tick_and_push_make_no_host_sync(cuda):
+    """A StreamingPool tick and a StreamingSession push queue their work
+    without waiting for the card (torch's sync debug mode raises on any
+    synchronising call); their codes then equal the CPU port's."""
+    from qpgesture_tpu_torch.serve import StreamingPool, StreamingSession
+    cpu, card, ta, tc = _wavvq_engines(cuda)
+    outs = {}
+    for name, eng in (("cpu", cpu), ("card", card)):
+        pool = StreamingPool(eng, 3, rngs=[np.random.RandomState(i)
+                                           for i in range(3)])
+        sess = StreamingSession(eng, rng=np.random.RandomState(5))
+        pool.tick(ta[:3], tc[:3])                  # warm-up
+        sess.push_window(ta[0], tc[0])
+        if name == "card":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            a = pool.tick_device(ta[1:4], tc[1:4],
+                                 active=np.array([True, False, True]))
+            b = sess.push_window_device(ta[1], tc[1])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        outs[name] = (a.cpu().numpy(), b.cpu().numpy(),
+                      *(x.cpu().numpy() for x in pool.state()))
+    for g, w in zip(outs["card"], outs["cpu"]):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_wavlm_high_on_card_matches_cpu(cuda):
+    """A small WavLM at precision="high": three cuBLAS bfloat16 GEMMs per
+    contraction and float32 K2 on the card, the CPU's float32 emulation of
+    the same split products: other summation orders only."""
+    from qpgesture_tpu_torch.models.wavlm import WavLM, WavLMConfig
+    cfg = WavLMConfig(encoder_layers=2, encoder_embed_dim=64,
+                      encoder_ffn_embed_dim=128, encoder_attention_heads=4,
+                      num_buckets=32, max_distance=80, precision="high",
+                      conv_feature_layers=((32, 10, 5), (32, 3, 2),
+                                           (32, 3, 2)))
+    torch.manual_seed(3)
+    cpu = WavLM(cfg, device="cpu")
+    card = WavLM(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    wav = torch.from_numpy((np.random.RandomState(0).randn(2, 3200) * 0.2)
+                           .astype(np.float32))
+    before = flash_attention_cuda.launches
+    got = card(wav.to(cuda))
+    assert flash_attention_cuda.launches == before + cfg.encoder_layers
+    assert float((got.cpu() - cpu(wav)).abs().max()) <= 1e-3
+
+
+def test_minilm_on_card_matches_cpu(cuda):
+    """A small MiniLM in float32 (TF32 off) on the card against the CPU."""
+    from qpgesture_tpu_torch.models.minilm import (MiniLM, MiniLMConfig,
+                                                   mean_pool)
+    cfg = MiniLMConfig(vocab_size=120, hidden_size=48, num_layers=2,
+                       num_heads=4, intermediate_size=96,
+                       max_position_embeddings=64)
+    torch.manual_seed(1)
+    cpu = MiniLM(cfg, device="cpu")
+    card = MiniLM(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    ids = torch.randint(0, 120, (3, 17))
+    mask = (torch.arange(17)[None] < torch.tensor([[17], [9], [5]])).long()
+    want = mean_pool(cpu(ids, mask), mask)
+    got = mean_pool(card(ids.to(cuda), mask.to(cuda)), mask.to(cuda))
+    assert float((got.cpu() - want).abs().max()) <= 1e-5

@@ -25,6 +25,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     mods = _port_modules()
     for m in ("ops.levenshtein_cuda", "ops.flash_attention_cuda",
               "ops.cuda_build", "models.wavlm", "models.vq_wav2vec",
+              "models.minilm", "models.convert",
               "match.device_staging", "pipelines.audio_prep",
               "pipelines.database_builder", "serve"):
         assert f"qpgesture_tpu_torch.{m}" in mods
@@ -52,6 +53,7 @@ def test_entry_points_default_to_cuda(tmp_path):
     from qpgesture_tpu_torch.cli import main
     from qpgesture_tpu_torch.core.config import MatchConfig, VQVAEConfig
     from qpgesture_tpu_torch.match.engine import CodeKNNEngine
+    from qpgesture_tpu_torch.models.minilm import MiniLM, MiniLMConfig
     from qpgesture_tpu_torch.models.vq_wav2vec import (VQWav2Vec,
                                                        VQWav2VecConfig)
     from qpgesture_tpu_torch.models.vqvae import VQVAE
@@ -77,6 +79,9 @@ def test_entry_points_default_to_cuda(tmp_path):
                           conv_feature_layers=((8, 10, 5),)))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         VQWav2Vec(VQWav2VecConfig(conv_layers=((8, 10, 5),)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MiniLM(MiniLMConfig(vocab_size=8, hidden_size=8, num_layers=1,
+                            num_heads=1, intermediate_size=8))
 
     # generate: every input it reads before the first device is resolved
     from test_torch_rawwav import _write_generate_inputs

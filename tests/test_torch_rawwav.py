@@ -186,11 +186,13 @@ def test_rawwav_server_matches_jax_and_host_path(preset):
 
 
 def test_rawwav_server_rejects_mfcc_modes_and_batch():
+    """MFCC modes are refused; serve_batch is ported (tests/
+    test_torch_batch.py), the multi-GPU serve_sharded is not."""
     rng, fx, cfg, _, pdb, vq = _setup("wavvq", 59)
     server = RawWavServer(PortEngine(port_config(cfg), pdb, device="cpu"),
                           vq, _port_vqw2v())
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        server.serve_batch(np.zeros((1, 2, 64000), np.int16))
+        server.serve_sharded(None, np.zeros((2, 64000), np.int16))
     mcfg = port_config(dataclasses.replace(MATCH_PRESETS["mfcc"],
                                            codebook_size=32))
     mdb = port_db.stage_database(mcfg, fx["bundle"], fx["codes"],

@@ -154,8 +154,13 @@ def test_checkpoint_round_trip(tmp_path):
 
 
 def test_precisions_not_ported_raise():
-    _, pcfg = _configs("large_style", precision="high")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    """Every precision of the JAX package is ported; any other name is
+    refused."""
+    assert pw.PRECISIONS == tuple(jw._PRECISIONS)
+    for prec in pw.PRECISIONS:
+        pw.WavLM(_configs("large_style", precision=prec)[1], device="cpu")
+    _, pcfg = _configs("large_style", precision="fastest")
+    with pytest.raises(ValueError, match="fastest"):
         pw.WavLM(pcfg, device="cpu")
 
 
@@ -243,3 +248,98 @@ def test_wavlm_default_matches_jax(style, impl):
     assert got.shape == want.shape == (2, 159, 64)
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=0, atol=8e-2)
+
+
+def _split_np(x):
+    """numpy bf16x3 operand split: (hi, lo) as float64."""
+    hi = _bf16_np(x)
+    return hi.astype(np.float64), _bf16_np(
+        np.asarray(x, np.float32) - hi).astype(np.float64)
+
+
+def _bf16x3_np(a, b):
+    """a @ b as bf16x3 computes it, the products and sums in float64."""
+    (ah, al), (bh, bl) = _split_np(a), _split_np(b)
+    return ah @ bh + (ah @ bl + al @ bh)
+
+
+def test_high_linear_matches_bf16x3_reference():
+    """The CPU "high" Linear: three products of bfloat16 hi/lo splits with
+    float32 sums, plus the float32 bias, within 1e-6 of numpy's float64
+    bf16x3 on the same splits (float32 summation order only); the dropped
+    lo.lo term and the split keep it ~1e-5 from the float32 product."""
+    torch.manual_seed(0)
+    layer = torch.nn.Linear(64, 48)
+    x = np.random.RandomState(1).randn(5, 7, 64).astype(np.float32)
+    got = pw.linear(layer, torch.from_numpy(x), "high").detach().numpy()
+    w = layer.weight.detach().numpy().copy()
+    b = layer.bias.detach().numpy()
+    want = _bf16x3_np(x, w.T) + b
+    assert got.dtype == np.float32 and got.shape == (5, 7, 48)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    f32 = x @ w.T + b
+    assert 1e-7 < np.abs(got - f32).max() < 1e-4
+    # the cached hi/lo copies follow an in-place change of the weight
+    with torch.no_grad():
+        layer.weight.mul_(2.0)
+    got2 = pw.linear(layer, torch.from_numpy(x), "high").detach().numpy()
+    np.testing.assert_allclose(got2, _bf16x3_np(x, 2 * w.T) + b, rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("style", sorted(STYLES))
+@torch.no_grad()
+def test_high_convs_match_bf16x3_reference(style):
+    """The "high" convolutions (three GEMMs over unfolded windows) against
+    numpy's float64 bf16x3 of the same windows, before the block's norm,
+    within 1e-6 relative (outputs up to ~4, float32 sums of up to 2048
+    products); the pos_conv the same over its groups."""
+    _, pcfg = _configs(style, precision="high")
+    model = _port_model(pcfg)
+    x = torch.from_numpy(_wav())[:, :, None]
+    for block in model.feature_extractor.conv_layers:
+        conv = block[0]
+        k, stride = conv.kernel_size[0], conv.stride[0]
+        cols = x.unfold(1, k, stride).reshape(-1, conv.in_channels * k)
+        w = conv.weight.reshape(conv.out_channels, -1).t()
+        got = pw.matmul_weight(conv, cols, "weight", lambda: w, "high")
+        want = _bf16x3_np(cols.numpy(), w.numpy())
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+        x = pw.conv_block_bf16(block, x, "high")
+    assert x.shape == model.feature_extractor(
+        torch.from_numpy(_wav())).shape
+
+    pos = model.encoder.pos_conv[0]
+    feats = torch.from_numpy(np.random.RandomState(2).randn(
+        2, 23, 64).astype(np.float32))
+    got = pos.forward_bf16(feats, "high") - pos.bias
+    G, k = pos.groups, pos.weight_v.shape[-1]
+    cols = torch.nn.functional.pad(feats, (0, 0, pos.padding, pos.padding)
+                                   ).unfold(1, k, 1)[:, :23]
+    cols = cols.reshape(2 * 23, G, -1).transpose(0, 1).numpy()
+    w = pos.weight().reshape(G, 64 // G, -1).transpose(1, 2).numpy()
+    want = np.stack([_bf16x3_np(cols[g], w[g]) for g in range(G)])
+    want = want.transpose(1, 0, 2).reshape(2, 23, 64)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+# "high" against the JAX package's "high". On a CPU XLA computes HIGH in
+# float32; the port computes bf16x3 as a TPU does, ~1e-5 relative per
+# contraction (the split and the dropped lo.lo term), through two layers
+# and their LayerNorms: 4.9e-5-5.4e-5 seen on features of scale ~3.7. The
+# tolerance is FEAT_ATOL, the one "highest" is held to.
+@pytest.mark.parametrize("style", sorted(STYLES))
+@pytest.mark.parametrize("impl", ["eager", "flash"])
+def test_wavlm_high_matches_jax(style, impl):
+    jcfg, pcfg = _configs(style, precision="high", attn_impl=impl)
+    model = _port_model(pcfg)
+    variables = jw.convert_wavlm(model.state_dict(), jcfg)
+    wav = _wav()
+    want = np.asarray(jw.WavLMJax(jcfg).apply(variables, jnp.asarray(wav)))
+    before = flash_attention_cuda.launches
+    got = model(torch.from_numpy(wav)).numpy()
+    assert flash_attention_cuda.launches == before
+    assert got.shape == want.shape == (2, 159, 64)
+    np.testing.assert_allclose(got, want, rtol=0, atol=FEAT_ATOL)
+    highest = _port_model(dataclasses.replace(pcfg, precision="highest"))
+    assert np.abs(got - highest(torch.from_numpy(wav)).numpy()).max() > 0
