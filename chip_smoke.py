@@ -36,7 +36,17 @@ counts set to 0 just before it and read just after:
                (bf16x3 GEMMs, float32 K2);
   phase 14     transcript ingress: a full-width random MiniLM through
                torch.save and load_minilm, TranscriptContextStager's
-               context feeding RawWavServer.serve.
+               context feeding RawWavServer.serve;
+  phase 15     database build -> serve: four 60 s BEAT-like recordings
+               (BVH, wav, transcript) through process_recording, the
+               full-width PAE's PhaseExtractor, window_recordings with
+               MiniLM context, encode_windows, codebook_signature,
+               extract_wavlm (WavLM-Large, K2 f32 at B=8) and
+               extract_wavvq, each held against the CPU port; the built
+               database served (shipped: K2, wavvq: K1) against the CPU
+               port's engine; then the build-db, phase, signature,
+               test-audio, assemble-beat and warmup CLIs, their files held
+               against the library calls.
 
 It prints one line per check. The last three lines are the card's name and
 power limit, one JSON object with every kernel's launches, error and
@@ -83,6 +93,20 @@ DEFAULT_FEAT_ATOL = 0.1
 # MiniLM context embeddings (LayerNorm scale, mean-pooled), card against
 # CPU: float32 on both sides (TF32 off), other summation orders, 6 layers.
 MINILM_ATOL = 2e-5
+# phase 15: four BEAT-like recordings; split_of gives train, train, test,
+# validation
+REC_SECONDS = 60.0
+REC_NAMES = ("1_smoke_0_1_1", "1_smoke_0_2_2", "1_smoke_0_103_103",
+             "1_smoke_0_111_111")
+# PAE phases, card against CPU: float32 on both sides (TF32 off), other
+# summation orders through the 240-tap convs and the FFT; p on the circle
+PHASE_ATOL = 1e-4
+PHASE_CHECK_ROWS = 48  # CPU rows checked at 3 places of each recording
+# the decoded codebook signature (poses of unit scale), card against CPU
+SIGNATURE_ATOL = 1e-3
+# a VQ code may differ from the CPU's only between candidates whose squared
+# distances differ by float32 rounding, relative to the terms summed
+CODE_GAP_RTOL = 1e-6
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS = 67e12           # float32 outside the tensor cores (TF32 off)
 BF16_TC_FLOPS = 989e12      # bfloat16 tensor cores, dense
@@ -180,9 +204,12 @@ def log_profile(phase: str, fn) -> dict:
     return {e.key: (e.self_device_time_total, e.count) for e in kernels}
 
 
-def skeleton_bvh_text(rng, n_frames: int = 48, fps: int = 120) -> str:
+def skeleton_bvh_text(rng, n_frames: int = 48, fps: int = 120,
+                      smooth: bool = False) -> str:
     """A BEAT-like skeleton holding the 15 upper-body target joints under a
-    Hips root, with random motion."""
+    Hips root, with random motion: independent per frame, or (smooth) three
+    sinusoids of 0.2-2.5 Hz per channel, as recorded gestures move."""
+    import numpy as np
     children = {
         "Hips": ["Spine"], "Spine": ["Spine1"], "Spine1": ["Spine2"],
         "Spine2": ["Spine3"],
@@ -219,7 +246,14 @@ def skeleton_bvh_text(rng, n_frames: int = 48, fps: int = 120) -> str:
 
     emit("Hips", 0)
     lines += ["MOTION", f"Frames: {n_frames}", f"Frame Time: {1.0 / fps:.6f}"]
-    for row in rng.uniform(-30, 30, size=(n_frames, n_ch)):
+    if smooth:
+        t = np.arange(n_frames)[:, None] / fps
+        motion = sum(rng.uniform(2, 20, n_ch) * np.sin(
+            2 * np.pi * rng.uniform(0.2, 2.5, n_ch) * t
+            + rng.uniform(0, 2 * np.pi, n_ch)) for _ in range(3))
+    else:
+        motion = rng.uniform(-30, 30, size=(n_frames, n_ch))
+    for row in motion:
         lines.append(" ".join(f"{v:.4f}" for v in row))
     return "\n".join(lines) + "\n"
 
@@ -402,6 +436,31 @@ def phase_k2(dev):
             f"kernel_ms={t_ms:.5f} library_ms={sdpa_ms:.5f} (SDPA) "
             f"bound_ms={b_ms:.5f} ({b_by})")
     return line
+
+
+def k2_times(dev, B: int) -> dict:
+    """Float32 K2 and SDPA device times at (B, 16, 199, 64), gated, on the
+    inputs WavLM hands the kernel, with the bound of that work."""
+    import torch
+    import torch.nn.functional as F
+    from qpgesture_tpu_torch.ops import flash_attention_cuda as K2
+
+    gen = torch.Generator().manual_seed(SEED + B)
+    q, k, v = (torch.randn(B, 16, 199, 64, generator=gen).to(dev)
+               for _ in range(3))
+    bias = torch.randn(16, 199, 199, generator=gen).to(dev)
+    gate = (1.0 + torch.rand(B, 16, 199, generator=gen)).to(dev)
+    scale = 64 ** -0.5
+    xb = K2.prepare_bias(bias, torch.float32)
+    qs, mask = q * scale, gate[..., None] * bias[None]
+    bound_ms, bound_by = flash_bound(B, 16, 199, 64, 4, True, F32_FLOPS)
+    return dict(
+        ms=device_ms(lambda: K2.gated_flash_attention(
+            q, k, v, xb, gate, sm_scale=scale,
+            kernel_dtype=torch.float32), 20),
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+            qs, k, v, attn_mask=mask, scale=1.0), 20),
+        bound_ms=bound_ms, bound_by=bound_by)
 
 
 def phase_rawwav_shipped(dev, rng, bundle, codes, signature, vqvae_gpu,
@@ -1097,6 +1156,27 @@ def transcript(rng, seconds: float):
     return words
 
 
+def write_minilm_dir(path: str, words) -> int:
+    """A full-width random MiniLM (seeded) saved as a checkpoint directory
+    with a vocabulary holding the transcript's words. Returns its parameter
+    count."""
+    import torch
+    from qpgesture_tpu_torch.models.minilm import MiniLM, MiniLMConfig
+    mcfg = MiniLMConfig()
+    torch.manual_seed(SEED)
+    model = MiniLM(mcfg, device="cpu")
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.save(model.state_dict(), os.path.join(path, "pytorch_model.bin"))
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    vocab += sorted({w for _, _, w in words})
+    vocab += [f"filler{i}" for i in range(mcfg.vocab_size - len(vocab))]
+    with open(os.path.join(path, "vocab.txt"), "w") as f:
+        f.write("\n".join(vocab) + "\n")
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({}, f)                   # paraphrase-MiniLM-L6-v2's
+    return n_params
+
+
 def phase_transcript(dev, rng, shipped, server):
     """Transcript ingress: a full-width random MiniLM written with
     torch.save and read back by load_minilm; TranscriptContextStager
@@ -1106,8 +1186,7 @@ def phase_transcript(dev, rng, shipped, server):
     import torch
     from qpgesture_tpu_torch.match.database import (stage_test_audio,
                                                     stage_test_context)
-    from qpgesture_tpu_torch.models.minilm import (MiniLM, MiniLMConfig,
-                                                   load_minilm)
+    from qpgesture_tpu_torch.models.minilm import MiniLMConfig, load_minilm
     from qpgesture_tpu_torch.ops import flash_attention_cuda as K2
     from qpgesture_tpu_torch.pipelines.database_builder import context_slots
     from qpgesture_tpu_torch.serve import (ServingPipeline,
@@ -1117,18 +1196,7 @@ def phase_transcript(dev, rng, shipped, server):
     mcfg = MiniLMConfig()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.time()
-        torch.manual_seed(SEED)
-        model = MiniLM(mcfg, device="cpu")
-        n_params = sum(p.numel() for p in model.parameters())
-        torch.save(model.state_dict(), os.path.join(tmp, "pytorch_model.bin"))
-        del model
-        vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
-        vocab += sorted({w for _, _, w in words})
-        vocab += [f"filler{i}" for i in range(mcfg.vocab_size - len(vocab))]
-        with open(os.path.join(tmp, "vocab.txt"), "w") as f:
-            f.write("\n".join(vocab) + "\n")
-        with open(os.path.join(tmp, "config.json"), "w") as f:
-            json.dump({}, f)                   # paraphrase-MiniLM-L6-v2's
+        n_params = write_minilm_dir(tmp, words)
         enc_gpu = load_minilm(tmp, device=dev)
         enc_cpu = load_minilm(tmp, device="cpu")
     stager = TranscriptContextStager(enc_gpu)
@@ -1167,6 +1235,528 @@ def phase_transcript(dev, rng, shipped, server):
         f"serving of the card's context, K2 launches {k2_launches}; codes "
         f"equal to phase 7's (random context) {int(same.sum())}/{same.size}")
     return k2_launches
+
+
+def speech_like(rng, seconds: float):
+    """16 kHz float32 speech-like audio: a voiced tone with vibrato, a
+    syllable-rate envelope and noise."""
+    import numpy as np
+    t = np.arange(int(seconds * 16000)) / 16000
+    f0 = 140 + 25 * np.sin(2 * np.pi * 0.7 * t)
+    tone = np.sin(2 * np.pi * np.cumsum(f0) / 16000)
+    env = 0.5 + 0.5 * np.sin(2 * np.pi * 3.1 * t) ** 2
+    return (0.25 * env * tone + 0.01 * rng.randn(t.size)).astype(np.float32)
+
+
+def write_recordings(root: str, rng):
+    """REC_NAMES as BEAT-like files under root: bvh/ (the 15-target-joint
+    skeleton at 120 fps, smooth motion), wav/ (16 kHz PCM16) and txt/ (tab
+    transcripts). Returns (the three directories, every word written)."""
+    from qpgesture_tpu_torch.pipelines.audio_prep import write_wav
+    from qpgesture_tpu_torch.pipelines.transcripts import write_tab_transcript
+    dirs = {k: os.path.join(root, k) for k in ("bvh", "wav", "txt")}
+    for d in dirs.values():
+        os.makedirs(d)
+    all_words = []
+    for name in REC_NAMES:
+        with open(os.path.join(dirs["bvh"], name + ".bvh"), "w") as f:
+            f.write(skeleton_bvh_text(rng, int(REC_SECONDS * 120),
+                                      smooth=True))
+        write_wav(os.path.join(dirs["wav"], name + ".wav"),
+                  speech_like(rng, REC_SECONDS), 16000)
+        words = transcript(rng, REC_SECONDS)
+        write_tab_transcript(os.path.join(dirs["txt"], name + ".txt"), words)
+        all_words += words
+    return dirs, all_words
+
+
+def read_recordings(dirs, workdir: str):
+    """The recordings as build-db reads them, in its order: [(name, BVH,
+    float32 16 kHz wav, words)]."""
+    import glob
+
+    import numpy as np
+    from qpgesture_tpu_torch.motion.bvh import parse_bvh
+    from qpgesture_tpu_torch.pipelines.audio_prep import (ensure_16k_wav,
+                                                          read_wav)
+    from qpgesture_tpu_torch.pipelines.transcripts import read_tab_transcript
+    out = []
+    for path in sorted(glob.glob(os.path.join(dirs["bvh"], "*.bvh"))):
+        name = os.path.splitext(os.path.basename(path))[0]
+        wav, _ = read_wav(ensure_16k_wav(
+            os.path.join(dirs["wav"], name + ".wav"), workdir))
+        out.append((name, parse_bvh(path), wav.astype(np.float32),
+                    read_tab_transcript(os.path.join(dirs["txt"],
+                                                     name + ".txt"))))
+    return out
+
+
+def circular_err(got, want):
+    """Per-element distance of two phase arrays on the unit circle."""
+    import numpy as np
+    d = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64)) % 1
+    return np.minimum(d, 1 - d)
+
+
+def check_codes(name: str, vq_gpu, norm, got, want) -> None:
+    """VQ codes of the card against the CPU port's. Where they differ, the
+    two candidates' squared distances from the card's latent are compared:
+    a flip is accepted only between candidates whose distances differ by
+    float32 rounding (relative to the terms the distance sums)."""
+    import numpy as np
+    import torch
+    diff = np.argwhere(got != want)
+    gaps = []
+    for n, t in diff:
+        with torch.no_grad():
+            h = vq_gpu.encoders[0](torch.as_tensor(
+                norm[n:n + 1].astype(np.float32), device=vq_gpu.device))
+        x = h[0, t].double().cpu().numpy()
+        k = vq_gpu.codebook.double().cpu().numpy()
+        a, b = k[got[n, t]], k[want[n, t]]
+        da, db = ((x - a) ** 2).sum(), ((x - b) ** 2).sum()
+        scale = (x ** 2).sum() + max((a ** 2).sum(), (b ** 2).sum())
+        gaps.append(abs(da - db) / scale)
+        log(f"phase 15 {name} code differs at window {n} slot {t}: card "
+            f"{got[n, t]} vs CPU {want[n, t]}, distance gap {da - db:+.3e} "
+            f"(relative {gaps[-1]:.3e}, tol {CODE_GAP_RTOL})")
+    if gaps and max(gaps) > CODE_GAP_RTOL:
+        raise SystemExit(f"{name}: card codes differ from the CPU port's by "
+                         f"more than float32 rounding")
+    log(f"phase 15 {name} codes: {got.size - len(diff)}/{got.size} equal to "
+        f"the CPU port's")
+
+
+def phase_build(dev, rng, shipped, vqvae_cpu, tmp: str):
+    """Database construction on the card from four full-size BEAT-like
+    recordings, with the library functions build-db calls, each held
+    against the CPU port; then the built database served. Returns what the
+    CLI part needs. The launches of this part are read by the caller."""
+    import numpy as np
+    import torch
+    from qpgesture_tpu_torch.core.config import MATCH_PRESETS, PAEConfig
+    from qpgesture_tpu_torch.core.schemas import CodebookSignature
+    from qpgesture_tpu_torch.match.database import (stage_database,
+                                                    stage_test_audio,
+                                                    stage_test_context)
+    from qpgesture_tpu_torch.match.engine import CodeKNNEngine
+    from qpgesture_tpu_torch.models.pae import PAE, PhaseExtractor
+    from qpgesture_tpu_torch.models.vq_wav2vec import VQWav2Vec
+    from qpgesture_tpu_torch.models.vqvae import codebook_signature
+    from qpgesture_tpu_torch.motion.pipeline import MotionPipeline
+    from qpgesture_tpu_torch.ops import flash_attention_cuda as K2
+    from qpgesture_tpu_torch.ops import levenshtein_cuda as K1
+    from qpgesture_tpu_torch.ops.mfcc import MFCCConfig, sphinx_mfcc_np
+    from qpgesture_tpu_torch.pipelines import database_builder as builder
+    from qpgesture_tpu_torch.pipelines.audio_host import get_energy
+    from qpgesture_tpu_torch.pipelines.pitch_world import get_pitch_world
+    from qpgesture_tpu_torch.serve import RawWavServer, ServingPipeline
+    from qpgesture_tpu_torch.train.data import dataset_stats
+
+    def seconds(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    # -- recordings on disk, read back as build-db reads them ---------------
+    t0 = time.time()
+    dirs, words = write_recordings(os.path.join(tmp, "rec"), rng)
+    minilm_dir = os.path.join(tmp, "minilm")
+    os.makedirs(minilm_dir)
+    write_minilm_dir(minilm_dir, words)
+    inputs = read_recordings(dirs, os.path.join(tmp, "_audio16k"))
+    log(f"phase 15 set-up: {len(inputs)} recordings of {REC_SECONDS:.0f} s "
+        f"(BVH at 120 fps, 16 kHz wav, {len(words)} transcript words), "
+        f"MiniLM directory; {time.time() - t0:.1f} s")
+
+    # -- host features (step 2) ----------------------------------------------
+    pipeline = MotionPipeline(fps=60).fit(inputs[0][1])
+    recs, host_s = seconds(lambda: [
+        builder.process_recording(name, bvh, wav, pipeline, w)
+        for name, bvh, wav, w in inputs])
+    wav0 = inputs[0][2]
+    _, pitch_s = seconds(lambda: get_pitch_world(wav0, log=True, norm=False))
+    _, mfcc_s = seconds(lambda: sphinx_mfcc_np(wav0, MFCCConfig(frate=60)))
+    _, energy_s = seconds(lambda: get_energy(wav0))
+    mean, std = dataset_stats([{"poses": r.rotation} for r in recs])
+    n_frames = sum(len(r.rotation) for r in recs)
+    log(f"phase 15 host: process_recording x{len(recs)} {1e3 * host_s:.1f} "
+        f"ms ({n_frames} frames at 60 fps); one {REC_SECONDS:.0f} s "
+        f"recording: host_ms pitch={1e3 * pitch_s:.1f} "
+        f"mfcc={1e3 * mfcc_s:.1f} energy={1e3 * energy_s:.1f}")
+
+    # -- PAE phases on the card ------------------------------------------------
+    torch.manual_seed(SEED + 2)
+    pae_cpu = PAE(PAEConfig(), device="cpu")
+    pae_gpu = copy.deepcopy(pae_cpu).to(dev)
+    extractor = PhaseExtractor(pae_gpu, device=dev)
+    extractor.pose_to_phase(recs[0].rotation[:300], mean, std)   # warm-up
+    torch.cuda.synchronize()
+    phases, phase_s = seconds(lambda: [
+        extractor.pose_to_phase(r.rotation, mean, std) for r in recs])
+    for rec, ph in zip(recs, phases):
+        rec.phase = ph
+    cpu_ex = PhaseExtractor(pae_cpu, device="cpu")
+    worst = {k: (0.0, 0) for k in "pfab"}       # (max error, channel)
+    t0 = time.time()
+    R = PHASE_CHECK_ROWS
+    for rec in recs:
+        vel = cpu_ex.velocity(rec.rotation, mean, std)
+        T = len(rec.rotation)
+        # both padded edges, and the seam of the first two batches of 1024
+        for a in (0, min(1024, T // 2) - R // 2, T - R):
+            want = cpu_ex.phases_at(vel, a, a + R).numpy()
+            got = rec.phase[a:a + R]
+            errs = [circular_err(got[:, 0], want[:, 0])] + [
+                np.abs(got[:, i] - want[:, i]) for i in (1, 2, 3)]
+            for key, e in zip("pfab", errs):
+                m = float(e.max())
+                if m > worst[key][0]:
+                    worst[key] = (m, int(e.max(axis=0).argmax()))
+    f_scale = float(np.abs(np.stack([r.phase[:, 1] for r in recs])).max())
+    log(f"phase 15 PAE: phase_ms={1e3 * phase_s:.2f} for {n_frames} frames "
+        f"({n_frames / phase_s:.0f} frames/s, one stride-1 window each, "
+        f"batch 1024); card vs CPU port on {3 * R} rows of each recording: "
+        + ", ".join(f"{k} max_abs_err {v:.3e} (channel {c})"
+                    for k, (v, c) in worst.items())
+        + f" (tol {PHASE_ATOL}, p on the circle; frequency scale "
+          f"{f_scale:.3f}); check {time.time() - t0:.1f} s")
+    if max(v for v, _ in worst.values()) > PHASE_ATOL:
+        raise SystemExit("card PAE phases differ from the CPU port's")
+    log_profile("phase 15 PAE extraction",
+                lambda: extractor.pose_to_phase(recs[0].rotation, mean, std))
+
+    # -- windows with MiniLM context on the card -------------------------------
+    embed = builder.minilm_embed_fn(minilm_dir, device=dev)
+    splits = {"train": [], "validation": [], "test": []}
+    for rec in recs:
+        splits[builder.split_of(rec.name)].append(rec)
+    bundles, window_s = seconds(lambda: {
+        s: builder.window_recordings(r, embed_fn=embed)
+        for s, r in splits.items()})
+    ref = builder.window_recordings(
+        splits["test"], embed_fn=builder.minilm_embed_fn(minilm_dir,
+                                                         device="cpu"))
+    ctx_err = float(np.abs(bundles["test"].context - ref.context).max())
+    log(f"phase 15 windows: " + ", ".join(
+        f"{s} {b.body.shape[0]}" for s, b in bundles.items())
+        + f" (train {[r.name for r in splits['train']]}); window + MiniLM "
+          f"context {1e3 * window_s:.1f} ms; test context card vs CPU port "
+          f"max_abs_err {ctx_err:.3e} (tol {MINILM_ATOL})")
+    if not ctx_err <= MINILM_ATOL:
+        raise SystemExit("card MiniLM context differs from the CPU port's")
+
+    # -- VQ-VAE codes and the codebook signature ------------------------------
+    vq_cpu = copy.deepcopy(vqvae_cpu)
+    clip_std = np.clip(std, 0.01, None)
+    norm = {s: (b.body - mean) / clip_std for s, b in bundles.items()}
+    # the codebook from the built windows' latents, as training starts
+    vq_cpu.init_codebook_from_batch(torch.as_tensor(
+        norm["train"][:32].astype(np.float32)), rng)
+    vq_gpu = copy.deepcopy(vq_cpu).to(dev)
+    for b in bundles.values():                  # warm-up at the timed shapes
+        builder.encode_windows(vq_gpu, b.body, mean, std)
+    codebook_signature(vq_gpu, mean, std)
+    codes, encode_s = seconds(lambda: {
+        s: builder.encode_windows(vq_gpu, b.body, mean, std)
+        for s, b in bundles.items()})
+    for s, b in bundles.items():
+        check_codes(f"encode_windows {s}", vq_gpu, norm[s], codes[s],
+                    builder.encode_windows(vq_cpu, b.body, mean, std))
+    (sig_code, sig_poses, sig), signature_s = seconds(
+        lambda: codebook_signature(vq_gpu, mean, std))
+    t0 = time.time()
+    c_cpu, p_cpu, s_cpu = codebook_signature(vq_cpu, mean, std)
+    sig_err = max(float(np.abs(sig_poses - p_cpu).max()),
+                  float(np.abs(sig - s_cpu).max()))
+    log(f"phase 15 encode_ms={1e3 * encode_s:.2f} ({sum(len(c) for c in codes.values())}"
+        f" windows, batch 64); signature_ms={1e3 * signature_s:.2f} "
+        f"(512 codes x 240 frames decoded); signature card vs CPU port "
+        f"max_abs_err {sig_err:.3e} (tol {SIGNATURE_ATOL}); CPU "
+        f"{time.time() - t0:.1f} s; distinct train codes "
+        f"{len(np.unique(codes['train']))}")
+    if not (np.array_equal(sig_code, c_cpu) and sig_err <= SIGNATURE_ATOL):
+        raise SystemExit("card codebook signature differs from the CPU port's")
+    signature = CodebookSignature(code=sig_code, poses=sig_poses,
+                                  signature=sig)
+
+    # -- WavLM-Large features (K2 f32 at B=8) and vq-wav2vec codes -------------
+    enc_gpu, enc_cpu = shipped["enc_gpu"], shipped["enc_cpu"]
+    layers = enc_gpu.cfg.encoder_layers
+    builder.extract_wavlm(enc_gpu, bundles["test"].wav)   # warm-up, B=8 and 7
+    before = K2.launches
+    feats, wavlm_s = seconds(lambda: {
+        s: builder.extract_wavlm(enc_gpu, b.wav) for s, b in bundles.items()})
+    want_launches = layers * sum(-(-len(b.wav) // 8)
+                                 for b in bundles.values())
+    if K2.launches - before != want_launches:
+        raise SystemExit(f"extract_wavlm launched K2 {K2.launches - before} "
+                         f"times, not {want_launches}")
+    t0 = time.time()         # the CPU port on the test split's first batch
+    feat_err = float(np.abs(feats["test"][:8] - builder.extract_wavlm(
+        enc_cpu, bundles["test"].wav[:8])).max())
+    n_win = sum(len(b.wav) for b in bundles.values())
+    log(f"phase 15 wavlm_ms={1e3 * wavlm_s:.2f} ({n_win} windows at batch 8"
+        f", {want_launches} K2 launches); test windows 0-7 card vs CPU port "
+        f"max_abs_err {feat_err:.3e} (tol {FEAT_ATOL}), CPU "
+        f"{time.time() - t0:.1f} s")
+    if not feat_err <= FEAT_ATOL:
+        raise SystemExit("card WavLM features differ from the CPU port's")
+    torch.manual_seed(SEED + 3)
+    wavvq_cpu = VQWav2Vec(device="cpu")
+    wavvq_gpu = copy.deepcopy(wavvq_cpu).to(dev)
+    wavvq, wavvq_s = seconds(lambda: {
+        s: builder.extract_wavvq(wavvq_gpu, b.wav)
+        for s, b in bundles.items()})
+    log(f"phase 15 vq-wav2vec {1e3 * wavvq_s:.2f} ms ({n_win} windows)")
+
+    # -- serve the built database's test split -------------------------------
+    train, test = bundles["train"], bundles["test"]
+    wav, ctx = test.wav[:W], test.context[:W]
+    served = {}
+    for preset, encoder, kw in (("shipped", enc_gpu, {"wavlm": feats}),
+                                ("wavvq", wavvq_gpu, {"wavvq": wavvq})):
+        cfg = MATCH_PRESETS[preset]
+        key = next(iter(kw))
+        db = stage_database(cfg, train, codes["train"], signature,
+                            **{key: kw[key]["train"]})
+        server = RawWavServer(CodeKNNEngine(cfg, db, device=dev), vq_gpu,
+                              encoder, mean, std)
+        b1, b2 = K1.launches, K2.launches
+        (got, poses), serve_s = seconds(lambda: server.serve(
+            wav, ctx, init_code=0, rng=np.random.RandomState(cfg.seed)))
+        n1, n2 = K1.launches - b1, K2.launches - b2
+        if (preset == "shipped" and n2 != layers) or \
+                (preset == "wavvq" and n1 < 1):
+            raise SystemExit(f"{preset} request on the built database "
+                             f"launched K1 {n1}, K2 {n2} times")
+        enc = server.encode(wav).cpu().numpy()
+        want, _ = ServingPipeline(CodeKNNEngine(cfg, db, device="cpu"),
+                                  vq_cpu).serve(
+            stage_test_audio(cfg, db, **{key: enc}),
+            stage_test_context(db, ctx), init_code=0,
+            rng=np.random.RandomState(cfg.seed))
+        if got.shape != (W, 30) or poses.shape != (W * 240, 135) or \
+                not np.isfinite(poses).all() or not np.array_equal(got, want):
+            raise SystemExit(f"{preset} request on the built database: "
+                             f"codes differ from the CPU port's engine")
+        served[preset] = got
+        log(f"phase 15 served the built database ({preset}, J="
+            f"{len(train.body)} train windows with their PAE phases, "
+            f"request of the test split's first {W} windows): "
+            f"{1e3 * serve_s:.1f} ms, codes == the CPU port's engine over the "
+            f"same staged inputs; K1 launches {n1}, K2 launches {n2}; "
+            f"distinct codes {len(np.unique(got))}")
+    return dict(dirs=dirs, minilm_dir=minilm_dir, recs=recs,
+                pipeline=pipeline, mean=mean, std=std, bundles=bundles,
+                codes=codes, wavvq=wavvq, pae_cpu=pae_cpu,
+                extractor=extractor, vq_cpu=vq_cpu, vq_gpu=vq_gpu,
+                wavvq_cpu=wavvq_cpu, wavvq_gpu=wavvq_gpu)
+
+
+def phase_build_clis(dev, built, enc_cpu, tmp: str) -> None:
+    """The database CLIs on the card (build-db, phase, signature,
+    test-audio, warmup; assemble-beat on the host) on checkpoints written
+    to disk, each file held against the library call on the same inputs:
+    host arrays, codes and vq-wav2vec codes exactly, device floats within
+    the card-vs-CPU tolerances (their bit-equality is logged)."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+    import yaml
+    from qpgesture_tpu_torch.cli import main as cli
+    from qpgesture_tpu_torch.core.config import load_config
+    from qpgesture_tpu_torch.core.schemas import (CodebookSignature,
+                                                  DatabaseBundle)
+    from qpgesture_tpu_torch.models.vqvae import codebook_signature
+    from qpgesture_tpu_torch.models.wavlm import load_wavlm_checkpoint
+    from qpgesture_tpu_torch.ops import levenshtein_cuda as K1
+    from qpgesture_tpu_torch.pipelines import database_builder as builder
+    from qpgesture_tpu_torch.pipelines.audio_prep import load_wav_16k
+
+    p = lambda *names: os.path.join(tmp, *names)
+    notes = []
+
+    def close(name, got, want, atol):
+        """Float outputs: within atol, with their bit-equality noted."""
+        err = float(np.abs(np.asarray(got, np.float64)
+                           - np.asarray(want, np.float64)).max())
+        notes.append(f"{name} {'bit-equal' if np.array_equal(got, want) else f'max_abs_err {err:.3e}'}")
+        if got.shape != want.shape or not err <= atol:
+            raise SystemExit(f"CLI {name} differs from the library call")
+
+    def equal(name, got, want):
+        if got.shape != want.shape or got.dtype != want.dtype or \
+                not np.array_equal(got, want):
+            raise SystemExit(f"CLI {name} differs from the library call")
+
+    # -- checkpoints: the build's PAE, VQ-VAE and vq-wav2vec; WavLM cut to 2
+    t0 = time.time()
+    os.makedirs(p("ck"))
+    torch.save({"model_dict": {f"module.{k}": v for k, v in
+                               built["pae_cpu"].state_dict().items()}},
+               p("ck", "pae.pt"))
+    torch.save({"model_dict": built["vq_cpu"].state_dict()},
+               p("ck", "vqvae.bin"))
+    torch.save({"model": built["wavvq_cpu"].state_dict()},
+               p("ck", "wavvq.pt"))
+    layers = 2
+    wcfg = dataclasses.replace(enc_cpu.cfg, encoder_layers=layers)
+    torch.save({"cfg": {k: v for k, v in dataclasses.asdict(wcfg).items()
+                        if k != "conv_feature_layers"},
+                "model": {k: v for k, v in enc_cpu.state_dict().items()
+                          if not k.startswith("encoder.layers.")
+                          or int(k.split(".")[2]) < layers}},
+               p("ck", "wavlm2.pt"))
+    mean, std = built["mean"], built["std"]
+    with open(p("ck", "config.yml"), "w") as f:
+        yaml.safe_dump({"data_mean": mean.tolist(),
+                        "data_std": std.tolist()}, f)
+    conf = load_config(p("ck", "config.yml"))
+    mean64 = np.asarray(conf.data_mean).squeeze()
+    std64 = np.asarray(conf.data_std).squeeze()
+    dirs = built["dirs"]
+    t_files = time.time() - t0
+
+    # -- build-db ------------------------------------------------------------
+    t0 = time.time()
+    cli(["build-db", "--bvh-dir", dirs["bvh"], "--wav-dir", dirs["wav"],
+         "--transcript-dir", dirs["txt"], "--out", p("db"),
+         "--prefix", "smoke", "--config", p("ck", "config.yml"),
+         "--pae-checkpoint", p("ck", "pae.pt"),
+         "--vqvae-checkpoint", p("ck", "vqvae.bin"),
+         "--wavvq-checkpoint", p("ck", "wavvq.pt"),
+         "--wavlm-checkpoint", p("ck", "wavlm2.pt"),
+         "--sentence-model", built["minilm_dir"], "--device", "cuda"])
+    t_build = time.time() - t0
+    with open(p("db", "pipeline.json")) as f:
+        if f.read() != built["pipeline"].to_json():
+            raise SystemExit("CLI pipeline.json differs from the library's")
+    stats = np.load(p("db", "stats.npz"))
+    equal("stats mean", stats["mean"], mean)
+    equal("stats std", stats["std"], std)
+    wavlm2 = load_wavlm_checkpoint(p("ck", "wavlm2.pt"), device=dev)
+    for split, want in built["bundles"].items():
+        stem = p("db", f"smoke_{split}_240")
+        got = DatabaseBundle.load(f"{stem}_txt_2.npz")
+        for field in ("body", "mfcc", "wav", "energy", "pitch", "volume"):
+            equal(f"{split} {field}", getattr(got, field),
+                  getattr(want, field))
+        if [list(a) for a in got.aux] != [list(a) for a in want.aux]:
+            raise SystemExit(f"CLI {split} aux differs from the library's")
+        close(f"{split} phase", got.phase, want.phase, PHASE_ATOL)
+        close(f"{split} context", got.context, want.context, MINILM_ATOL)
+        equal(f"{split} codes", np.load(f"{stem}_code.npz")["code"],
+              built["codes"][split])
+        equal(f"{split} WavVQ", np.load(f"{stem}_WavVQ.npz")["wavvq"],
+              built["wavvq"][split])
+        close(f"{split} WavLM (2 layers)",
+              np.load(f"{stem}_WavLM.npz")["wavlm"],
+              builder.extract_wavlm(wavlm2, want.wav), FEAT_ATOL)
+    del wavlm2
+
+    # -- phase -----------------------------------------------------------------
+    t0 = time.time()
+    os.makedirs(p("rot"))
+    for rec in built["recs"]:
+        np.savez(p("rot", rec.name + ".npz"), upper=rec.rotation)
+    cli(["phase", "--checkpoint", p("ck", "pae.pt"),
+         "--config", p("ck", "config.yml"), "--rotation-dir", p("rot"),
+         "--out", p("phase"), "--device", "cuda"])
+    for rec in built["recs"]:
+        close(f"phase {rec.name}", np.load(p("phase", rec.name + ".npz"))[
+            "phase"], built["extractor"].pose_to_phase(
+                rec.rotation, mean64, std64), PHASE_ATOL)
+    t_phase = time.time() - t0
+
+    # -- signature ------------------------------------------------------------
+    t0 = time.time()
+    cli(["signature", "--checkpoint", p("ck", "vqvae.bin"),
+         "--config", p("ck", "config.yml"), "--out", p("code.npz"),
+         "--device", "cuda"])
+    got = CodebookSignature.load(p("code.npz"))
+    want = codebook_signature(built["vq_gpu"], mean64, std64)
+    equal("signature code", got.code, want[0])
+    close("signature poses", got.poses, want[1], SIGNATURE_ATOL)
+    close("signature", got.signature, want[2], SIGNATURE_ATOL)
+    t_sig = time.time() - t0
+
+    # -- test-audio --------------------------------------------------------
+    t0 = time.time()
+    test_name = next(r.name for r in built["recs"]
+                     if builder.split_of(r.name) == "test")
+    test_wav = os.path.join(dirs["wav"], test_name + ".wav")
+    os.makedirs(p("test"))
+    cli(["test-audio", "--wav", test_wav, "--out",
+         p("test", "wavvq_240.npz"), "--wavvq-checkpoint",
+         p("ck", "wavvq.pt"), "--device", "cuda"])
+    windows = builder.window_test_audio(load_wav_16k(test_wav))
+    equal("test-audio wav", np.load(p("test", "wav_240.npz"))["wav"],
+          windows)
+    equal("test-audio wavvq", np.load(p("test", "wavvq_240.npz"))["wavvq"],
+          builder.extract_wavvq(built["wavvq_gpu"], windows))
+    t_test = time.time() - t0
+
+    # -- assemble-beat: an orig-BEAT tree with one broken Frames header and
+    # one unpaired motion file -------------------------------------------
+    t0 = time.time()
+    os.makedirs(p("orig", "1"))
+    names = [r.name for r in built["recs"]]
+    for i, name in enumerate(names):
+        shutil.copy(os.path.join(dirs["wav"], name + ".wav"), p("orig", "1"))
+        with open(os.path.join(dirs["bvh"], name + ".bvh")) as f:
+            text = f.read()
+        if i == 0:
+            n = int(REC_SECONDS * 120)
+            text = text.replace(f"Frames: {n}\n", f"Frames: {n + 1}\n")
+        with open(p("orig", "1", name + ".bvh"), "w") as f:
+            f.write(text)
+    shutil.copy(os.path.join(dirs["bvh"], names[0] + ".bvh"),
+                p("orig", "1", "1_smoke_0_9_9.bvh"))
+    cli(["assemble-beat", "--orig-root", p("orig"), "--out", p("beat")])
+    for sub, src, ext in (("Motion", dirs["bvh"], ".bvh"),
+                          ("Audio", dirs["wav"], ".wav")):
+        if sorted(os.listdir(p("beat", sub))) != sorted(n + ext
+                                                        for n in names):
+            raise SystemExit(f"assemble-beat {sub}/ holds the wrong files")
+        for name in names:
+            with open(p("beat", sub, name + ext), "rb") as f, \
+                    open(os.path.join(src, name + ext), "rb") as g:
+                if f.read() != g.read():
+                    raise SystemExit(f"assemble-beat {sub}/{name}{ext} "
+                                     f"differs from its source")
+    t_beat = time.time() - t0
+
+    # -- warmup on the built database, both presets ------------------------
+    t0 = time.time()
+    db_files = ["--train-database", p("db", "smoke_train_240_txt_2.npz"),
+                "--train-codebook", p("db", "smoke_train_240_code.npz"),
+                "--codebook-signature", p("code.npz"),
+                "--buckets", "1,2", "--device", "cuda"]
+    out = io.StringIO()
+    before = K1.launches
+    with contextlib.redirect_stdout(out):
+        cli(["warmup", *db_files, "--train-wavvq",
+             p("db", "smoke_train_240_WavVQ.npz"), "--preset", "wavvq",
+             "--decode", "--serving", "--checkpoint", p("ck", "vqvae.bin"),
+             "--streams", "2"])
+        cli(["warmup", *db_files, "--train-wavlm",
+             p("db", "smoke_train_240_WavLM.npz"), "--preset", "shipped"])
+    text = out.getvalue()
+    for line in text.splitlines():
+        log(f"phase 15 warmup | {line}")
+    if text.count("warm: 2 bucket(s)") != 2 or K1.launches == before:
+        raise SystemExit("warmup did not warm both presets")
+    t_warm = time.time() - t0
+    log(f"phase 15 CLIs on the card: build-db {t_build:.1f} s, phase "
+        f"{t_phase:.1f} s, signature {t_sig:.1f} s, test-audio "
+        f"{t_test:.1f} s, assemble-beat {t_beat:.1f} s, warmup "
+        f"{t_warm:.1f} s (checkpoints {t_files:.1f} s); files == the "
+        f"library calls' on the same inputs (host arrays, codes and "
+        f"vq-wav2vec codes exactly); " + "; ".join(notes))
 
 
 def main() -> int:
@@ -1451,8 +2041,25 @@ def main() -> int:
 
     # -- phase 14: transcript -> MiniLM -> context ingress ------------------
     k2_launches += phase_transcript(dev, rng, shipped, staged["server"])
-    del shipped, staged
+    del staged
     phase_wall("phase 14")
+
+    # -- phase 15: database build on the card -> serve, and the CLIs -------
+    k2_b8 = k2_times(dev, 8)
+    with tempfile.TemporaryDirectory() as tmp:
+        K1.launches = K2.launches = 0
+        built = phase_build(dev, rng, shipped, model_cpu, tmp)
+        phase_build_clis(dev, built, shipped["enc_cpu"], tmp)
+        k1, k2 = K1.launches, K2.launches
+    log(f"phase 15 K2 at B=8 (extract_wavlm's batch), f32: kernel_ms="
+        f"{k2_b8['ms']:.5f} library_ms={k2_b8['library_ms']:.5f} (SDPA) "
+        f"bound_ms={k2_b8['bound_ms']:.5f} ({k2_b8['bound_by']}); phase 15 "
+        f"launches: K1 {k1}, K2 {k2}")
+    if not (k1 and k2):
+        raise SystemExit("phase 15 did not launch both kernels")
+    k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
+    del shipped, built
+    phase_wall("phase 15")
 
     # -- the kernels line and the result ------------------------------------
     kernels_line = {"kernels": [{

@@ -5,9 +5,10 @@ Microsoft's WavLM's, fairseq's vq-wav2vec's, Hugging Face BERT's), so
 reference checkpoints load with ``load_state_dict``
 (``load_vqvae_checkpoint`` here, ``models/wavlm.load_wavlm_checkpoint``,
 ``models/vq_wav2vec.load_vq_wav2vec_checkpoint``,
-``models/minilm.load_minilm``). The ``*_from_jax`` functions are the
-inverses of the JAX package's converters
-(``models/torch_convert.convert_vqvae``, ``models/wavlm.convert_wavlm``,
+``models/minilm.load_minilm``, ``load_pae_checkpoint`` here). The
+``*_from_jax`` functions are the inverses of the JAX package's converters
+(``models/torch_convert.convert_vqvae`` and ``convert_pae``,
+``models/wavlm.convert_wavlm``,
 ``models/vq_wav2vec.convert_vq_wav2vec``, ``models/minilm.convert_minilm``):
 they map a flax parameter tree back to a state_dict.
 
@@ -24,9 +25,10 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..core.config import VQVAEConfig
+from ..core.config import PAEConfig, VQVAEConfig
 from ..device import DeviceLike
 from .minilm import MiniLMConfig
+from .pae import PAE
 from .vq_wav2vec import VQWav2VecConfig
 from .vqvae import VQVAE
 from .wavlm import WavLMConfig, weight_norm
@@ -90,6 +92,36 @@ def _dense(p: Dict, key: str, out: Dict) -> None:
 def _layer_norm(p: Dict, key: str, out: Dict) -> None:
     out[f"{key}.weight"] = _t(p["scale"])
     out[f"{key}.bias"] = _t(p["bias"])
+
+
+def pae_state_dict_from_jax(variables: Dict,
+                            cfg: PAEConfig) -> Dict[str, torch.Tensor]:
+    """The JAX package's PAE variables ({'params', 'batch_stats'}) -> the
+    port's (and the reference's) PAE state_dict: the inverse of
+    ``convert_pae``. BatchNorm's ``num_batches_tracked``, which the flax
+    tree does not hold, is 0."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    def batchnorm(name: str, key: str) -> None:
+        sd[f"{key}.weight"] = _t(params[name]["scale"])
+        sd[f"{key}.bias"] = _t(params[name]["bias"])
+        sd[f"{key}.running_mean"] = _t(stats[name]["mean"])
+        sd[f"{key}.running_var"] = _t(stats[name]["var"])
+        sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
+
+    _conv1d(params["conv1"], "conv1", sd)
+    batchnorm("bn_conv1", "bn_conv1")
+    _conv1d(params["conv2"], "conv2", sd)
+    batchnorm("bn_conv2", "bn_conv2")
+    for i in range(cfg.phase_channels):
+        _dense(params[f"fc{i}"], f"fc.{i}", sd)
+    for i in range(cfg.phase_channels):
+        batchnorm(f"bn{i}", f"bn.{i}")
+    _conv1d(params["deconv1"], "deconv1", sd)
+    batchnorm("bn_deconv1", "bn_deconv1")
+    _conv1d(params["deconv2"], "deconv2", sd)
+    return sd
 
 
 def wavlm_state_dict_from_jax(variables: Dict,
@@ -258,4 +290,15 @@ def load_vqvae_checkpoint(path: str, cfg: VQVAEConfig,
         raise KeyError(f"checkpoint {path} lacks {len(missing)} VQ-VAE "
                        f"tensors, e.g. {missing[:3]}")
     model.load_state_dict({k: sd[k] for k in wanted})
+    return model
+
+
+def load_pae_checkpoint(path: str, cfg: PAEConfig,
+                        device: DeviceLike = "cuda") -> PAE:
+    """Load a reference PAE checkpoint ({'model_dict': sd} or a bare sd,
+    with or without the DataParallel 'module.' prefix) into a port PAE."""
+    ckpt = _torch_load_reference(path)
+    sd = strip_prefix(ckpt["model_dict"] if "model_dict" in ckpt else ckpt)
+    model = PAE(cfg, device=device)
+    model.load_state_dict(sd)
     return model

@@ -4,10 +4,13 @@ Same model family as the reference (codebook/models/vqvae.py:52-302,
 Jukebox/Bailando-style, 1 level, x8 temporal downsampling, 512x512
 codebook), as one nn.Module whose state_dict keys are the reference's:
 ``encoders.0.*``, ``decoders.0.*`` and ``bottleneck.level_blocks.0.k``.
-Inference only (encode/decode); the trainer is not ported yet. Public
+Inference only (encode/decode, ``codebook_signature``); the trainer is not
+ported yet. Public
 methods take and return NTC tensors.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -68,3 +71,20 @@ class VQVAE(nn.Module):
     def decode(self, codes: torch.Tensor) -> torch.Tensor:
         """(N, Tc) int codes -> (N, Tc*hop, 135) poses (vqvae.py:152-159)."""
         return self.decoders[0](bn.dequantise(self.codebook, codes))
+
+
+def codebook_signature(model: VQVAE, data_mean: Optional[np.ndarray] = None,
+                       data_std: Optional[np.ndarray] = None):
+    """Decode every code as a constant 30-code block; signature = mean pose
+    over time (VisualizeCodebook.cal_distance:93-116). Returns
+    (code (K, 30) int32, poses (K, 240, 135), signature (K, 135)),
+    denormalized (std clipped at 0.01) if stats are given."""
+    K = model.cfg.l_bins
+    codes = np.tile(np.arange(K, dtype=np.int32)[:, None],
+                    (1, model.cfg.sample_length))
+    poses = model.decode(torch.as_tensor(codes, device=model.device)
+                         ).cpu().numpy()
+    if data_mean is not None:
+        std = np.clip(np.asarray(data_std), 0.01, None)
+        poses = poses * std + np.asarray(data_mean)
+    return codes, poses, poses.mean(axis=1)

@@ -264,3 +264,62 @@ def test_minilm_on_card_matches_cpu(cuda):
     want = mean_pool(cpu(ids, mask), mask)
     got = mean_pool(card(ids.to(cuda), mask.to(cuda)), mask.to(cuda))
     assert float((got.cpu() - want).abs().max()) <= 1e-5
+
+
+def test_pae_phases_on_card_match_cpu(cuda):
+    """PhaseExtractor at the default PAE width (240-tap convs, 15 joints x
+    9, 8 channels) over a 300-frame pose, the card against the CPU: float32
+    on both sides (TF32 off), the phase compared on the circle."""
+    from qpgesture_tpu_torch.core.config import PAEConfig
+    from qpgesture_tpu_torch.models.pae import PAE, PhaseExtractor
+    torch.manual_seed(4)
+    cpu = PAE(PAEConfig(), device="cpu")
+    card = PAE(PAEConfig(), device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(4)
+    pose = rng.randn(300, 135).astype(np.float32)
+    mean, std = pose.mean(0), pose.std(0)
+    want = PhaseExtractor(cpu, device="cpu").pose_to_phase(pose, mean, std,
+                                                          batch=128)
+    got = PhaseExtractor(card, device=cuda).pose_to_phase(pose, mean, std,
+                                                         batch=128)
+    d = np.abs(got[:, 0] - want[:, 0]) % 1
+    assert float(np.minimum(d, 1 - d).max()) <= 1e-4
+    np.testing.assert_allclose(got[:, 1:], want[:, 1:], rtol=0, atol=1e-4)
+
+
+def _vqvae_pair(cuda):
+    from qpgesture_tpu_torch.core.config import VQVAEConfig
+    from qpgesture_tpu_torch.models.vqvae import VQVAE
+    cfg = VQVAEConfig(width=64, emb_width=64, l_bins=64, depth=2)
+    torch.manual_seed(5)
+    cpu = VQVAE(cfg, device="cpu")
+    cpu.init_codebook_from_batch(torch.randn(8, 240, 135),
+                                 np.random.RandomState(5))
+    card = VQVAE(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+def test_encode_windows_on_card_matches_cpu(cuda):
+    from qpgesture_tpu_torch.pipelines.database_builder import encode_windows
+    cpu, card = _vqvae_pair(cuda)
+    rng = np.random.RandomState(6)
+    body = rng.randn(70, 240, 135).astype(np.float32)
+    mean = (rng.randn(135) * 0.1).astype(np.float32)
+    std = rng.rand(135).astype(np.float32) + 0.5
+    want = encode_windows(cpu, body, mean, std)
+    got = encode_windows(card, body, mean, std)
+    assert got.dtype == np.int32 and got.shape == (70, 30)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_codebook_signature_on_card_matches_cpu(cuda):
+    from qpgesture_tpu_torch.models.vqvae import codebook_signature
+    cpu, card = _vqvae_pair(cuda)
+    rng = np.random.RandomState(7)
+    mean, std = rng.randn(135) * 0.1, rng.rand(135) + 0.5
+    for got, want in zip(codebook_signature(card, mean, std),
+                         codebook_signature(cpu, mean, std)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)

@@ -25,9 +25,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     mods = _port_modules()
     for m in ("ops.levenshtein_cuda", "ops.flash_attention_cuda",
               "ops.cuda_build", "models.wavlm", "models.vq_wav2vec",
-              "models.minilm", "models.convert",
+              "models.minilm", "models.convert", "models.pae",
               "match.device_staging", "pipelines.audio_prep",
-              "pipelines.database_builder", "serve"):
+              "pipelines.database_builder", "pipelines.pitch_world",
+              "pipelines.transcripts", "pipelines.audio_host",
+              "pipelines.beat_assembly", "ops.mfcc", "train.data",
+              "utils.native", "serve"):
         assert f"qpgesture_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -51,13 +54,15 @@ def test_entry_points_default_to_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the cuda default is valid here")
     from qpgesture_tpu_torch.cli import main
-    from qpgesture_tpu_torch.core.config import MatchConfig, VQVAEConfig
+    from qpgesture_tpu_torch.core.config import (MatchConfig, PAEConfig,
+                                                 VQVAEConfig)
     from qpgesture_tpu_torch.match.engine import CodeKNNEngine
     from qpgesture_tpu_torch.models.minilm import MiniLM, MiniLMConfig
     from qpgesture_tpu_torch.models.vq_wav2vec import (VQWav2Vec,
                                                        VQWav2VecConfig)
     from qpgesture_tpu_torch.models.vqvae import VQVAE
     from qpgesture_tpu_torch.models.wavlm import WavLM, WavLMConfig
+    from qpgesture_tpu_torch.models.pae import PAE, PhaseExtractor
     from qpgesture_tpu_torch.motion.fk import forward_kinematics
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -82,6 +87,25 @@ def test_entry_points_default_to_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MiniLM(MiniLMConfig(vocab_size=8, hidden_size=8, num_layers=1,
                             num_heads=1, intermediate_size=8))
+
+    pae_cfg = PAEConfig(frames=16, joints=2, channels_per_joint=3,
+                        phase_channels=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PAE(pae_cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PhaseExtractor(PAE(pae_cfg, device="cpu"))
+    # the database CLIs resolve the device before they read a file
+    missing = str(tmp_path / "missing")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["phase", "--checkpoint", missing, "--config", missing,
+              "--rotation-dir", missing, "--out", missing])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["signature", "--checkpoint", missing])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["build-db", "--bvh-dir", missing, "--wav-dir", missing,
+              "--out", str(tmp_path / "db")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["test-audio", "--wav", missing])
 
     # generate: every input it reads before the first device is resolved
     from test_torch_rawwav import _write_generate_inputs
