@@ -46,7 +46,18 @@ counts set to 0 just before it and read just after:
                database served (shipped: K2, wavvq: K1) against the CPU
                port's engine; then the build-db, phase, signature,
                test-audio, assemble-beat and warmup CLIs, their files held
-               against the library calls.
+               against the library calls;
+  phase 16     the matching surface and generate extras: phase 7's
+               requests served at cosine_precision "high" (shipped_fast,
+               bf16x3) and "default" and under bfloat16 / float16 residency
+               of phase 7's database (codes against "highest", distances
+               against float64, resident bytes), a shipped_fast
+               predict_batch; reference-ties matching on phase 4's database
+               (K1) against the CPU port and the reference-ties oracle;
+               verify-release --device cuda on a tree in the published
+               layout; generate --resync, resync-apply and generate --model
+               end2end with a full-width ResyncNet and GeneratorGRU against
+               the CPU port.
 
 It prints one line per check. The last three lines are the card's name and
 power limit, one JSON object with every kernel's launches, error and
@@ -1759,6 +1770,500 @@ def phase_build_clis(dev, built, enc_cpu, tmp: str) -> None:
         f"vq-wav2vec codes exactly); " + "; ".join(notes))
 
 
+def _feat_bytes(feat) -> int:
+    parts = feat if isinstance(feat, tuple) else (feat,)
+    return sum(t.numel() * t.element_size() for t in parts)
+
+
+def _cosine_f64(q, dn):
+    """float64 evaluation of the port's cosine products over the same
+    rounded operands (the query split as cosine_distance_prenorm splits
+    it): hi.hi + hi.lo + lo.hi for a (hi, lo) database, one product of the
+    query cast to the database's 16-bit type otherwise."""
+    from qpgesture_tpu_torch.match import engine as eng
+    from qpgesture_tpu_torch.ops.precision import split_bf16
+    qn = eng._l2_normalize(q)
+    if isinstance(dn, tuple):
+        q_hi, q_lo = (t.double() for t in split_bf16(qn))
+        d_hi, d_lo = (t.double() for t in dn)
+        return 1.0 - (q_hi @ d_hi.T + q_hi @ d_lo.T + q_lo @ d_hi.T)
+    return 1.0 - qn.to(dn.dtype).double() @ dn.double().T
+
+
+def _flip_gaps(dist_ref, rank_ref, rank_new):
+    """Where the per-code ranks of one query row differ, the gap between
+    each moved code's reference distance and that of the code holding its
+    old rank now: how near a tie the flip was."""
+    import numpy as np
+    moved = np.nonzero(rank_ref != rank_new)[0]
+    holder = {int(r): c for c, r in enumerate(rank_new)}
+    return [abs(float(dist_ref[c]) - float(dist_ref[holder[int(rank_ref[c])]]))
+            for c in moved]
+
+
+def phase16_tables(dev, shipped, vqvae_gpu, data_mean, data_std):
+    """shipped_fast ("high", bf16x3) and "default" cosine tables, then
+    bf16 / f16 residency, on phase 7's database, weights and requests."""
+    import numpy as np
+    import torch
+    from qpgesture_tpu_torch.core.config import MATCH_PRESETS
+    from qpgesture_tpu_torch.match import engine as eng
+    from qpgesture_tpu_torch.ops import flash_attention_cuda as K2
+    from qpgesture_tpu_torch.serve import RawWavServer
+
+    db, wavs, ctxs = shipped["db"], shipped["wavs"], shipped["ctxs"]
+    base = shipped["engine"]
+    want_codes = np.stack(shipped["codes"])
+    flat = db.aud_feat.reshape(-1, db.aud_feat.shape[-1])
+    server0 = RawWavServer(base, vqvae_gpu, shipped["enc_gpu"], data_mean,
+                           data_std)
+    staged = [server0.stage(server0.encode(wavs[r]), ctxs[r])
+              for r in range(N_REQUESTS)]
+    rows = torch.arange(512, device=dev) * (flat.shape[0] // 512)
+
+    def tables_ms(cfg, devdb, ta, tc):
+        return median_ms(lambda: eng._tables_impl(cfg, devdb, ta, tc), 10)
+
+    def cosine_ms(q, feat):
+        """(device ms of the audio cosine products alone, their bound: the
+        database and the queries read once and the (Q, N) float32
+        distances written once over HBM bandwidth, or 2QND operations per
+        product over the rate of the operands' type)"""
+        n_bytes = _feat_bytes(feat) + q.numel() * 4 + 4 * q.shape[0] * N
+        products = 3 if isinstance(feat, tuple) else 1
+        rate = F32_FLOPS if products == 1 and feat.dtype == torch.float32 \
+            else BF16_TC_FLOPS
+        ops_ms = 1e3 * products * 2 * q.shape[0] * N * q.shape[1] / rate
+        bound = max(ops_ms, 1e3 * n_bytes / HBM_BYTES_PER_S)
+        return device_ms(lambda: eng.cosine_distance_prenorm(q, feat), 20), \
+            bound
+
+    N = flat.shape[0]
+    ms_highest = tables_ms(base.cfg, base.devdb, *staged[0])
+    q48 = staged[0][0].reshape(-1, flat.shape[1])
+    cos_highest = cosine_ms(q48, base.devdb.aud_feat)
+
+    def staged_bytes(cfg):
+        """(engine, the device bytes its construction left allocated)"""
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        engine = eng.CodeKNNEngine(cfg, db, device=dev)
+        torch.cuda.synchronize()
+        return engine, torch.cuda.memory_allocated() - m0
+
+    # a float32 engine staged the same way: what it holds besides the audio
+    # features (the text features, phase grids, signature ranks) is common
+    f32_engine, f32_bytes = staged_bytes(base.cfg)
+    common = f32_bytes - flat.nbytes
+    del f32_engine
+    log(f"phase 16 set-up: \"highest\" tables_ms={ms_highest:.4f} at Q="
+        f"{W * 8}; a float32 engine holds {f32_bytes / 1e6:.1f} MB "
+        f"(memory_allocated), its audio features {flat.nbytes / 1e6:.1f} MB")
+
+    configs = [
+        ("shipped_fast", MATCH_PRESETS["shipped_fast"], 1e-4),
+        ("default", dataclasses.replace(MATCH_PRESETS["shipped"],
+                                        cosine_precision="default"), 1e-4),
+        ("bfloat16", dataclasses.replace(MATCH_PRESETS["shipped"],
+                                         feat_dtype="bfloat16"), 1e-5),
+        ("float16", dataclasses.replace(MATCH_PRESETS["shipped"],
+                                        feat_dtype="float16"), 1e-5),
+    ]
+    fast = None
+    for name, cfg, tol in configs:
+        engine, n_bytes = staged_bytes(cfg)
+        feat = engine.devdb.aud_feat
+        share = (n_bytes - common) / flat.nbytes    # of the float32 features
+        # the resident database: the split of the card's normalized rows,
+        # or the host's staging uploaded
+        if cfg.feat_dtype != "float32":
+            host = eng.stage_cosine_features(flat, cfg.feat_dtype)
+            if not torch.equal(feat.cpu(), host):
+                raise SystemExit(f"{name}: the staged database differs from "
+                                 f"the CPU port's host staging")
+            if not 0.45 <= share <= 0.55:
+                raise SystemExit(f"{name} residency takes {share:.3f} of "
+                                 f"float32's bytes")
+        # distances over 512 database rows against float64 products of
+        # the same rounded operands
+        q = staged[0][0].reshape(-1, staged[0][0].shape[-1])
+        sub = tuple(t[rows] for t in feat) if isinstance(feat, tuple) \
+            else feat[rows]
+        got = eng.cosine_distance_prenorm(q, sub)
+        err = float((got.double() - _cosine_f64(q, sub)).abs().max())
+        if not err <= tol:
+            raise SystemExit(f"{name}: distances differ from float64 by "
+                             f"{err:.3e} (tol {tol})")
+        server = RawWavServer(engine, vqvae_gpu, shipped["enc_gpu"],
+                              data_mean, data_std)
+
+        def serve(r):
+            return server.serve(wavs[r], ctxs[r], init_code=0,
+                                rng=np.random.RandomState(cfg.seed))
+
+        serve(0)
+        torch.cuda.synchronize()
+        before = K2.launches
+        req_ms, codes = [], []
+        for r in range(N_REQUESTS):
+            t0 = time.perf_counter()
+            codes.append(serve(r)[0])
+            req_ms.append(1e3 * (time.perf_counter() - t0))
+        k2_served = K2.launches - before
+        codes = np.stack(codes)
+        same = codes == want_codes
+        ms = tables_ms(cfg, engine.devdb, *staged[0])
+        cos = cosine_ms(q48, feat)
+        log(f"phase 16 {name}: engine {n_bytes / 1e6:.1f} MB by "
+            f"memory_allocated, its audio features {share:.3f} of float32's "
+            f"bytes; audio features "
+            f"{_feat_bytes(feat) / 1e6:.1f} MB, estimate_devdb_bytes "
+            f"{eng.estimate_devdb_bytes(cfg, db) / 1e6:.1f} MB; distances vs "
+            f"float64 over 512 rows max_abs_err {err:.3e} (tol {tol}); "
+            f"tables_ms={ms:.4f} (\"highest\" {ms_highest:.4f}); cosine "
+            f"products device {cos[0]:.4f} ms, bound {cos[1]:.4f} "
+            f"(\"highest\" {cos_highest[0]:.4f}, bound {cos_highest[1]:.4f});"
+            f" serve p50 "
+            f"{statistics.median(req_ms):.3f} ms over {N_REQUESTS} requests "
+            f"(K2 launches {k2_served}); index_agreement with \"highest\" "
+            f"{same.mean():.4f} ({int(same.sum())}/{same.size})")
+        for r in range(N_REQUESTS):
+            if same[r].all():
+                continue
+            ta, tc = staged[r]
+            t_ref = eng._tables_impl(base.cfg, base.devdb, ta, tc)
+            t_new = eng._tables_impl(cfg, engine.devdb, ta, tc)
+            d_ref = eng._raw_tables_impl(base.cfg, base.devdb, ta, tc)[0][0]
+            gaps = []
+            for qi in range(ta.shape[0] * ta.shape[1]):
+                gaps += _flip_gaps(d_ref[qi].cpu().numpy(),
+                                   t_ref.aud_rank[qi].cpu().numpy(),
+                                   t_new.aud_rank[qi].cpu().numpy())
+            log(f"phase 16 {name} request {r}: differing (window, slot) "
+                f"{[tuple(map(int, i)) for i in np.argwhere(~same[r])][:12]};"
+                f" {len(gaps)} per-code rank flips, \"highest\" distance gap "
+                f"of the flipped candidates max {max(gaps, default=0):.3e}")
+        if name == "shipped_fast":
+            fast = (cfg, engine)
+            log_profile("phase 16 \"highest\" tables at Q=48", lambda: (
+                eng._tables_impl(base.cfg, base.devdb, *staged[0]),
+                torch.cuda.synchronize()))
+            log_profile("phase 16 \"high\" tables at Q=48", lambda: (
+                eng._tables_impl(cfg, engine.devdb, *staged[0]),
+                torch.cuda.synchronize()))
+        else:
+            del engine, server
+
+    # one predict_batch of C=8 shipped_fast clips: lanes == solo predict
+    cfg, engine = fast
+    C = 8
+    clips = [staged[r % N_REQUESTS] for r in range(C)]
+    ta = torch.stack([c[0] if i < N_REQUESTS else c[0].flip(0)
+                      for i, c in enumerate(clips)]).cpu().numpy()
+    tc = torch.stack([c[1] if i < N_REQUESTS else c[1].flip(0)
+                      for i, c in enumerate(clips)]).cpu().numpy()
+    inits = np.arange(C, dtype=np.int32) * 61
+    phases0 = np.random.RandomState(SEED).rand(C, 8, 16).astype(np.float32)
+    lanes = engine.predict_batch(ta, tc, init_codes=inits,
+                                 init_phases=phases0)
+    for c in range(C):
+        solo = engine.predict(ta[c], tc[c], init_code=int(inits[c]),
+                              init_phase=phases0[c])
+        if not (np.array_equal(lanes[c].codes, solo.codes)
+                and np.array_equal(lanes[c].phases, solo.phases)):
+            raise SystemExit(f"shipped_fast predict_batch lane {c} differs "
+                             f"from solo predict")
+    qa = torch.as_tensor(ta.reshape((C * W,) + ta.shape[2:]), device=dev)
+    qc = torch.as_tensor(tc.reshape((C * W,) + tc.shape[2:]), device=dev)
+    ms_high = tables_ms(cfg, engine.devdb, qa, qc)
+    ms_f32 = tables_ms(base.cfg, base.devdb, qa, qc)
+    q384 = qa.reshape(-1, flat.shape[1])
+    cos_high = cosine_ms(q384, engine.devdb.aud_feat)
+    cos_f32 = cosine_ms(q384, base.devdb.aud_feat)
+    log(f"phase 16 shipped_fast predict_batch C={C} W={W}: every lane == "
+        f"solo predict; tables_ms at Q={C * W * 8}: \"high\" {ms_high:.4f}, "
+        f"\"highest\" {ms_f32:.4f} (x{ms_f32 / ms_high:.2f}); cosine "
+        f"products device \"high\" {cos_high[0]:.4f} ms (bound "
+        f"{cos_high[1]:.4f}), \"highest\" {cos_f32[0]:.4f} ms (bound "
+        f"{cos_f32[1]:.4f})")
+
+
+def phase16_reference_ties(dev, serving, reference, requests, bundle, codes,
+                           signature, wavvq):
+    """Reference-ties matching on phase 4's J=1024 wavvq database: K1 on
+    the card, the host fusion, against the CPU port, and on an
+    8-sequence subsample against the full reference-ties oracle."""
+    import numpy as np
+    from qpgesture_tpu_torch.match import engine as eng
+    from qpgesture_tpu_torch.match.database import stage_database
+    from qpgesture_tpu_torch.match.oracle import CodeKNNOracle
+    from qpgesture_tpu_torch.pipelines.release import _take_bundle
+
+    card, cpu = serving.engine, reference.engine
+    cfg = card.cfg
+    agree = []
+    for r, (ta, tc) in enumerate(requests[:N_REQUESTS]):
+        rng = lambda: np.random.RandomState(cfg.seed)
+        got = card.predict_reference_ties(ta, tc, rng=rng())
+        want = cpu.predict_reference_ties(ta, tc, rng=rng())
+        if not (np.array_equal(got.codes, want.codes)
+                and np.array_equal(got.phases, want.phases)
+                and np.array_equal(got.votes, want.votes)):
+            raise SystemExit(f"reference ties, request {r}: the card differs "
+                             f"from the CPU port")
+        stable = card.predict(ta, tc, rng=rng())
+        agree.append(float((stable.codes == got.codes).mean()))
+    ta, tc = requests[0]
+    W_, S = ta.shape[:2]
+    qa, qc = card.stage_queries(ta, tc)
+    raw = [[t.cpu().numpy() for t in side]
+           for side in eng._raw_tables_impl(cfg, card.devdb, qa, qc)]
+    aud = card._host_tables("aud", *raw[0], W_, S)
+    txt = card._host_tables("txt", *raw[1], W_, S)
+    oracle = CodeKNNOracle(card.db, tie_kind="reference")
+    t0 = time.perf_counter()
+    oracle.predict_with_tables(aud, txt, rng=np.random.RandomState(cfg.seed))
+    fusion_ms = 1e3 * (time.perf_counter() - t0)
+    call_ms = median_ms(lambda: card.predict_reference_ties(
+        ta, tc, rng=np.random.RandomState(cfg.seed)), 3, warmup=0)
+
+    sub = 8
+    db_s = stage_database(cfg, _take_bundle(bundle, sub), codes[:sub],
+                          signature, wavvq=wavvq[:sub])
+    t0 = time.time()
+    got = eng.CodeKNNEngine(cfg, db_s, device=dev).predict_reference_ties(
+        ta, tc, rng=np.random.RandomState(cfg.seed))
+    want = CodeKNNOracle(db_s, tie_kind="reference").predict(
+        ta, tc, rng=np.random.RandomState(cfg.seed))
+    if not np.array_equal(got.codes, want.codes):
+        raise SystemExit("reference ties on the 8-sequence subsample differ "
+                         "from the reference-ties oracle")
+    log(f"phase 16 reference ties: J={J} wavvq, {N_REQUESTS} requests, card "
+        f"== CPU port (codes, phases, votes; integer distances); stable vs "
+        f"reference tie agreement {[round(a, 4) for a in agree]}; host "
+        f"fusion {fusion_ms:.3f} ms of a {call_ms:.3f} ms call; J={sub} "
+        f"subsample == CodeKNNOracle(tie_kind='reference').predict over "
+        f"{W_} windows ({time.time() - t0:.1f} s)")
+
+
+def phase16_release(tmp, bundle, codes, signature, wavvq, clips, vqvae_cpu):
+    """verify-release --device cuda on a synthetic tree in the published
+    layout written from phase 4's arrays (dense phases, uncompressed)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from qpgesture_tpu_torch.cli import main as cli
+    from qpgesture_tpu_torch.core.schemas import load_result
+    from qpgesture_tpu_torch.pipelines.release import verify_release
+
+    t0 = time.time()
+    root = os.path.join(tmp, "release")
+    spk = os.path.join(root, "data", "BEAT", "speaker_2_state_0")
+    sig_dir = os.path.join(root, "data", "BEAT", "BEAT_output_60fps_rotation")
+    ex = os.path.join(root, "data", "Example1", "ZeroEGGS_cut")
+    pm = os.path.join(root, "pretrained_model")
+    for d in (spk, sig_dir, ex, pm):
+        os.makedirs(d)
+    stem = os.path.join(spk, "speaker_2_state_0")
+    np.savez(f"{stem}_train_240_txt_2.npz", context=bundle.context,
+             phase=bundle.phase)
+    np.savez(f"{stem}_test_240_txt_2.npz", context=clips[0][1])
+    np.savez(f"{stem}_train_240_code.npz", code=codes)
+    np.savez(f"{stem}_train_240_WavVQ.npz", wavvq=wavvq)
+    np.savez(os.path.join(sig_dir, "code.npz"), code=signature.code,
+             poses=signature.poses, signature=signature.signature)
+    np.savez(os.path.join(ex, "wavvq_240.npz"), wavvq=clips[0][0])
+    torch.save({"model_dict": vqvae_cpu.state_dict()},
+               os.path.join(pm, "codebook_checkpoint_best.bin"))
+    t1 = time.time()
+    out = os.path.join(tmp, "release_result.npz")
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        cli(["verify-release", root, "--device", "cuda", "--out", out])
+    card = json.loads(text.getvalue())
+    t2 = time.time()
+    lib_out = os.path.join(tmp, "release_result_lib.npz")
+    with contextlib.redirect_stdout(io.StringIO()):
+        lib = verify_release(root, out=lib_out, device="cuda")
+    bad = [k for k, v in card["checks"].items() if not v["ok"]]
+    if bad or not card["ok"]:
+        raise SystemExit(f"verify-release failed gates {bad}")
+    if {k: v["ok"] for k, v in card["checks"].items()} != \
+            {k: v["ok"] for k, v in lib["checks"].items()} or \
+            not np.array_equal(load_result(out), load_result(lib_out)):
+        raise SystemExit("the verify-release CLI differs from the library")
+    log(f"phase 16 verify-release --device cuda: every gate ok, result == "
+        f"the library call's; tree written in {t1 - t0:.1f} s, CLI "
+        f"{t2 - t1:.1f} s; scorecard:")
+    for name, check in card["checks"].items():
+        log(f"    {name}: {json.dumps(check)}")
+    log(f"    stable_vs_reference_tie_agreement: "
+        f"{card['stable_vs_reference_tie_agreement']}")
+
+
+def phase16_resync_end2end(dev, rng, tmp, vqvae_cpu):
+    """generate --resync and resync-apply with a full-width random
+    ResyncNet, generate --model end2end with a full-width random
+    GeneratorGRU, each against the CPU port."""
+    import numpy as np
+    import torch
+    from qpgesture_tpu_torch.cli import _end2end_windows, _make_resync_transform
+    from qpgesture_tpu_torch.cli import main as cli
+    from qpgesture_tpu_torch.core.schemas import DatabaseBundle
+    from qpgesture_tpu_torch.models.convert import (
+        load_generator_gru_checkpoint, load_resync_checkpoint)
+    from qpgesture_tpu_torch.models.gru_baseline import GeneratorGRU
+    from qpgesture_tpu_torch.models.resync import (ResyncNet,
+                                                   predict_resynced_gesture,
+                                                   resync_stats)
+    from qpgesture_tpu_torch.motion.bvh import parse_bvh
+    from qpgesture_tpu_torch.motion.pipeline import MotionPipeline
+    from qpgesture_tpu_torch.pipelines.audio_prep import write_wav
+    from qpgesture_tpu_torch.render.decode import decode_codes
+
+    p = lambda name: os.path.join(tmp, name)
+    gen = torch.Generator().manual_seed(SEED)
+
+    def randomize_bn(model):
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, torch.nn.BatchNorm1d):
+                    m.running_mean.copy_(0.1 * torch.randn(
+                        m.num_features, generator=gen))
+                    m.running_var.copy_(0.5 + torch.rand(
+                        m.num_features, generator=gen))
+
+    torch.manual_seed(SEED)
+    resync_cpu = ResyncNet(device="cpu")       # 13 + 135 in, 135 out
+    randomize_bn(resync_cpu)
+    torch.save({"model_resync_state_dict": resync_cpu.state_dict()},
+               p("best_model.pth"))
+    gru_cpu = GeneratorGRU(device="cpu")       # hidden 200, 512 codes
+    randomize_bn(gru_cpu)
+    torch.save({"model_dict": gru_cpu.state_dict()}, p("end2end.bin"))
+    torch.save({"model_dict": vqvae_cpu.state_dict()}, p("vqvae.bin"))
+    pipe = MotionPipeline(fps=60).fit(parse_bvh(skeleton_bvh_text(rng)))
+    with open(p("pipeline.json"), "w") as f:
+        f.write(pipe.to_json())
+    stats_bundle = DatabaseBundle(
+        mfcc=rng.randn(64, 240, 14).astype(np.float32),
+        body=(rng.randn(64, 240, 135) * 0.5).astype(np.float32))
+    np.savez(p("train_db.npz"), mfcc=stats_bundle.mfcc,
+             body=stats_bundle.body)
+    wav24 = (rng.randn(24 * 16000) * 0.1).astype(np.float32)
+    write_wav(p("speech24.wav"), wav24, 16000)
+    wav60 = (rng.randn(60 * 16000) * 0.1).astype(np.float32)
+    write_wav(p("speech60.wav"), wav60, 16000)
+    common = ["--model", "end2end", "--end2end-checkpoint", p("end2end.bin"),
+              "--vqvae-checkpoint", p("vqvae.bin"),
+              "--pipeline", p("pipeline.json")]
+
+    # -- resync: generate --resync over a 24 s request's decoded motion ----
+    t0 = time.time()
+    cli(["generate", "--wav", p("speech24.wav"), *common,
+         "--resync", p("best_model.pth"), "--train-database",
+         p("train_db.npz"), "--out", p("gen_resync"), "--prefix", "r"])
+    bvh = parse_bvh(p(os.path.join("gen_resync", "r_generated.bvh")))
+    if bvh.values.shape != (W * 240, len(bvh.channel_names)) or \
+            not np.isfinite(bvh.values).all():
+        raise SystemExit(f"generate --resync BVH {bvh.values.shape}")
+    codes24 = np.load(p(os.path.join("gen_resync", "code_r.npy")))
+    wav24_read = load_wav(p("speech24.wav"))
+    poses = decode_codes(vqvae_cpu, codes24)
+    out_card = _make_resync_transform(p("best_model.pth"), wav24_read,
+                                      stats_bundle, dev)(poses)
+    out_cpu = _make_resync_transform(p("best_model.pth"), wav24_read,
+                                     stats_bundle, torch.device("cpu"))(poses)
+    scale = float(out_cpu.std())
+    err = float(np.abs(out_card - out_cpu).max())
+    if not err <= 1e-3 * scale:
+        raise SystemExit(f"generate --resync: card vs CPU {err:.3e} (motion "
+                         f"std {scale:.3f})")
+    log(f"phase 16 generate --resync (24 s, end2end codes): BVH "
+        f"{bvh.values.shape}; the resync transform card vs CPU port "
+        f"max_abs_err {err:.3e} (tol 1e-3 x motion std {scale:.3f}); "
+        f"{time.time() - t0:.1f} s")
+
+    # -- resync-apply over N=64 x 240 frames -------------------------------
+    N = 64
+    knn = (rng.randn(N, 135, 240) * 0.5).astype(np.float32)
+    np.savez(p("knn.npz"), knn_pred=knn)
+    np.savez(p("test_mfcc.npz"), mfcc=rng.randn(N, 240, 14).astype(
+        np.float32))
+    outs = {}
+    for d in ("cuda", "cpu"):
+        t0 = time.time()
+        cli(["resync-apply", "--knn", p("knn.npz"), "--test-data",
+             p("test_mfcc.npz"), "--train-database", p("train_db.npz"),
+             "--checkpoint", p("best_model.pth"), "--out",
+             p(f"stage2_{d}.npz"), "--device", d])
+        outs[d] = (np.load(p(f"stage2_{d}.npz"))["knn_pred"],
+                   time.time() - t0)
+    scale = float(outs["cpu"][0].std())
+    err = float(np.abs(outs["cuda"][0] - outs["cpu"][0]).max())
+    if outs["cuda"][0].shape != knn.shape or not err <= 1e-3 * scale:
+        raise SystemExit(f"resync-apply: card vs CPU {err:.3e} (motion std "
+                         f"{scale:.3f})")
+    gen_card = load_resync_checkpoint(p("best_model.pth"), device=dev)
+    mf = np.load(p("test_mfcc.npz"))["mfcc"][:, :, :13]
+    stats = resync_stats(stats_bundle.mfcc[:, :, :13], stats_bundle.body)
+    motion = knn.transpose(0, 2, 1)
+    resync_ms = median_ms(lambda: predict_resynced_gesture(
+        gen_card, mf, motion, *stats), 5)
+    x = torch.randn(N, 148, 240, device=dev)
+    with torch.no_grad():
+        fwd_ms = device_ms(lambda: gen_card(x), 10)
+    log(f"phase 16 resync-apply N={N} x 240 frames: card vs CPU port "
+        f"max_abs_err {err:.3e} (tol 1e-3 x motion std {scale:.3f}); CLI "
+        f"{outs['cuda'][1]:.1f} s (cuda) / {outs['cpu'][1]:.1f} s (cpu); "
+        f"resync_ms={resync_ms:.3f} (host arrays in and out), forward "
+        f"device {fwd_ms:.3f} ms")
+    with torch.no_grad():
+        log_profile("phase 16 ResyncNet forward N=64", lambda: gen_card(x))
+
+    # -- end2end: generate --model end2end --max-frames 3600 on 60 s -------
+    t0 = time.time()
+    cli(["generate", "--wav", p("speech60.wav"), *common, "--max-frames",
+         "3600", "--out", p("gen_e2e"), "--prefix", "e"])
+    got = np.load(p(os.path.join("gen_e2e", "code_e.npy")))
+    wins = _end2end_windows(load_wav(p("speech60.wav")), 3600)
+    with torch.no_grad():
+        logits = gru_cpu(torch.from_numpy(wins))
+    want = logits.argmax(-1).numpy()
+    if got.shape != (15, 30) or want.shape != got.shape:
+        raise SystemExit(f"end2end codes {got.shape}")
+    for w, s in np.argwhere(got != want):
+        top = torch.topk(logits[w, s], 2).values
+        gap = float(top[0] - top[1])
+        log(f"phase 16 end2end code ({w}, {s}): card {got[w, s]} vs CPU "
+            f"{want[w, s]}, CPU top-2 logit gap {gap:.3e}")
+        if gap > 1e-6 * float(top[0].abs()):
+            raise SystemExit("end2end codes differ beyond float32 rounding")
+    gru_card = load_generator_gru_checkpoint(p("end2end.bin"), device=dev)
+    wins_d = torch.as_tensor(wins, device=dev)
+    sample_ms = median_ms(lambda: gru_card.sample(wins_d), 10)
+    with torch.no_grad():
+        card_logits = gru_card(wins_d).cpu()
+    same = got == want
+    log(f"phase 16 generate --model end2end --max-frames 3600 (60 s, 15 "
+        f"windows): codes equal to the CPU port's {int(same.sum())}/"
+        f"{same.size}; logits card vs CPU max_abs_err "
+        f"{float((card_logits - logits).abs().max()):.3e}; sample_ms="
+        f"{sample_ms:.3f} (device, CUDA events); {time.time() - t0:.1f} s")
+    kernels = log_profile("phase 16 GeneratorGRU.sample",
+                          lambda: gru_card.sample(wins_d))
+    rnn = [k for k in kernels if "rnn" in k.lower() or "gru" in k.lower()
+           or "persist" in k.lower() or "elemWise" in k]
+    log(f"phase 16 GRU kernels: {rnn[:6]}")
+
+
+def load_wav(path: str):
+    from qpgesture_tpu_torch.pipelines.audio_prep import load_wav_16k
+    return load_wav_16k(path)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2058,8 +2563,25 @@ def main() -> int:
     if not (k1 and k2):
         raise SystemExit("phase 15 did not launch both kernels")
     k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
-    del shipped, built
+    del built
     phase_wall("phase 15")
+
+    # -- phase 16: matching surface and generate extras --------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        K1.launches = K2.launches = 0
+        phase16_tables(dev, shipped, model_gpu, data_mean, data_std)
+        phase16_reference_ties(dev, serving, reference, requests, bundle,
+                               codes, signature, wavvq)
+        phase16_release(tmp, bundle, codes, signature, wavvq, clips,
+                        model_cpu)
+        phase16_resync_end2end(dev, rng, tmp, model_cpu)
+        k1, k2 = K1.launches, K2.launches
+    log(f"phase 16 launches: K1 {k1}, K2 {k2}")
+    if not (k1 and k2):
+        raise SystemExit("phase 16 did not launch both kernels")
+    k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
+    del shipped
+    phase_wall("phase 16")
 
     # -- the kernels line and the result ------------------------------------
     kernels_line = {"kernels": [{

@@ -10,6 +10,8 @@ Subcommands mirror the reference package's entry points:
   build-db       make_beat_dataset.py steps 2-4               -> bundles, codes
   phase          PAE.py --stage inference                     -> Phase npz
   assemble-beat  make_beat_dataset.py step 1                  -> Audio/ Motion/
+  resync-apply   ResyncGestureKNN.py stage 2                  -> knn_pred npz
+  verify-release the acceptance gate on a published artifact tree
 
 They take the reference package's flags; those that run a model also take
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch paths).
@@ -55,8 +57,6 @@ def cmd_match(args):
     from .match.database import stage_test_audio, stage_test_context
     from .match.engine import CodeKNNEngine
 
-    if args.ties == "reference":
-        raise NotImplementedError("--ties reference is not ported yet")
     if args.sharded == "always":
         raise NotImplementedError("--sharded always is not ported yet")
     cfg, db = _load_match_db(args)
@@ -85,7 +85,11 @@ def cmd_match(args):
 
     # one device: 'auto' sharding never spills
     engine = CodeKNNEngine(cfg, db, device=args.device)
-    result = engine.predict(test_audio, test_context)
+    if args.ties == "reference":
+        # phase 1 on the device, the fusion in the reference's arithmetic
+        result = engine.predict_reference_ties(test_audio, test_context)
+    else:
+        result = engine.predict(test_audio, test_context)
     save_result(args.out, result.codes)
     print(f"wrote {args.out}: knn_pred {result.codes.shape}")
 
@@ -121,33 +125,41 @@ def cmd_decode(args):
     print(f"wrote {bvh_path}" + (f" and {npy_path}" if npy_path else ""))
 
 
-def cmd_generate(args):
-    """Wav in, BVH out: the product path in one command (the reference's
-    demo wrapper, Speech2GestureMatching/inference.py:19-82, plus decode).
-    Window the audio, encode it (vq-wav2vec for wavvq, WavLM for shipped),
-    stage the queries, match against the staged database, decode with the
-    VQ-VAE, write BVH."""
-    from .core.config import MATCH_PRESETS, MatchConfig, VQVAEConfig, \
-        load_config
+def _end2end_windows(wav: np.ndarray, max_frames: int = 0) -> np.ndarray:
+    """Non-overlapping 4 s subdivision with a zero-padded trailing window,
+    the end2end serving split (codebook/inference.py:33-43,67-75; the
+    matching path's window_test_audio drops the partial tail instead).
+    max_frames clamps like inference.py:40-41 (MAX_FRAMES=3600 -> 15
+    windows)."""
+    import math
+
+    from .core import constants as C
+    unit = int(C.NUM_FRAMES / C.FPS * C.SR)  # 4 s * 16 kHz = 64000
+    n_sub = 1 if len(wav) < unit else \
+        math.ceil((len(wav) - unit) / unit) + 1
+    if max_frames:
+        n_sub = min(n_sub, max(1, int(max_frames / C.NUM_FRAMES)))
+    wins = np.zeros((n_sub, unit), np.float32)
+    for i in range(n_sub):
+        chunk = wav[i * unit:(i + 1) * unit]
+        wins[i, :len(chunk)] = chunk
+    return wins
+
+
+def _match_codes(args, wav: np.ndarray):
+    """--model matching: window the audio, encode it (vq-wav2vec for the
+    wavvq presets, WavLM for every other), match against the staged
+    database. Returns ((W, 30) codes, the train bundle)."""
+    from .core.config import MATCH_PRESETS, MatchConfig
     from .core.schemas import (CodebookSignature, DatabaseBundle, load_codes,
                                load_wavlm, load_wavvq)
     from .match.database import (stage_database, stage_test_audio,
                                  stage_test_context)
     from .match.engine import CodeKNNEngine
-    from .models.convert import load_vqvae_checkpoint
-    from .motion.pipeline import MotionPipeline
     from .pipelines.database_builder import (extract_wavlm, extract_wavvq,
                                              hashed_embed_fn,
                                              window_test_audio)
-    from .render.decode import render_result
 
-    if args.model == "end2end":
-        raise NotImplementedError("generate --model end2end is not ported "
-                                  "yet")
-    if args.resync:
-        raise NotImplementedError("generate --resync is not ported yet")
-    if args.video:
-        raise NotImplementedError("generate --video is not ported yet")
     for req in ("train_database", "train_codebook", "codebook_signature"):
         if not getattr(args, req):
             raise SystemExit(f"--model matching needs "
@@ -158,16 +170,6 @@ def cmd_generate(args):
     if not getattr(args, ckpt_arg):
         raise SystemExit(f"--preset {args.preset} needs "
                          f"--{ckpt_arg.replace('_', '-')}")
-    if not args.vqvae_checkpoint.endswith((".bin", ".pt")):
-        raise NotImplementedError(
-            "only reference torch checkpoints (.bin/.pt) are ported yet; "
-            f"got {args.vqvae_checkpoint}")
-
-    if args.wav.endswith(".npz"):
-        wav = np.load(args.wav)["wav"].astype(np.float32).reshape(-1)
-    else:
-        from .pipelines.audio_prep import load_wav_16k
-        wav = load_wav_16k(args.wav)
     windows = window_test_audio(wav)
     print(f"{windows.shape[0]} windows of 4 s")
 
@@ -203,8 +205,93 @@ def cmd_generate(args):
     engine = CodeKNNEngine(cfg, db, device=args.device)
     codes = engine.predict(test_audio, test_context).codes
     print(f"matched codes {codes.shape}")
+    return codes, bundle
 
+
+def _make_resync_transform(ckpt: str, wav: np.ndarray, bundle, device,
+                           n_joints: int = 135, n_mfcc: int = 13):
+    """The render_result pose_transform that applies a trained ResyncNet to
+    decoded KNN motion (`generate --resync`): per 4 s window, (MFCC |
+    motion) -> generator -> resynced motion. Stats come from the train
+    database bundle, as in ResyncGestureKNN.main:126-137."""
+    from .core import constants as C
+    from .models.convert import load_resync_checkpoint
+    from .models.resync import predict_resynced_gesture, resync_stats
+    from .ops.mfcc import MFCCConfig, sphinx_mfcc_np
+
+    if bundle.mfcc is None or bundle.body is None:
+        raise SystemExit("--resync needs a train database bundle with "
+                         "'mfcc' and 'body' arrays (the stats source)")
+    stats = resync_stats(bundle.mfcc[:, :, :n_mfcc], bundle.body)
+    mfcc_full = sphinx_mfcc_np(wav, MFCCConfig(frate=C.FPS)).astype(
+        np.float32)[:, :n_mfcc]
+    gen = load_resync_checkpoint(ckpt, device=device)
+
+    def transform(poses: np.ndarray) -> np.ndarray:
+        T = C.NUM_FRAMES
+        W = poses.shape[0] // T
+        mf = mfcc_full
+        if mf.shape[0] < W * T:
+            mf = np.pad(mf, ((0, W * T - mf.shape[0]), (0, 0)))
+        mf = mf[:W * T].reshape(W, T, n_mfcc)
+        motion = poses[:W * T].reshape(W, T, n_joints)
+        out = predict_resynced_gesture(gen, mf, motion, *stats)
+        resynced = poses.copy()
+        resynced[:W * T] = out.reshape(-1, n_joints)
+        return resynced
+
+    return transform
+
+
+def cmd_generate(args):
+    """Wav in, BVH out: the product path in one command (the reference's
+    demo wrapper, Speech2GestureMatching/inference.py:19-82, plus decode).
+
+    --model matching windows the audio, encodes it, matches it against the
+    staged database; --model end2end is the "w/o motion matching"
+    ablation's serving path (codebook/inference.py:26-98): the GRU baseline
+    predicts the code string from raw audio, with no database. Both decode
+    with the VQ-VAE and write BVH; --resync applies a trained ResyncNet to
+    the decoded motion first."""
+    from .core.config import VQVAEConfig, load_config
+    from .core.schemas import DatabaseBundle
+    from .device import resolve_device
+    from .models.convert import load_vqvae_checkpoint
+    from .motion.pipeline import MotionPipeline
+    from .render.decode import render_result
+
+    if args.video:
+        raise NotImplementedError("generate --video is not ported yet")
+    if not args.vqvae_checkpoint.endswith((".bin", ".pt")):
+        raise NotImplementedError(
+            "only reference torch checkpoints (.bin/.pt) are ported yet; "
+            f"got {args.vqvae_checkpoint}")
+    if args.wav.endswith(".npz"):
+        wav = np.load(args.wav)["wav"].astype(np.float32).reshape(-1)
+    else:
+        from .pipelines.audio_prep import load_wav_16k
+        wav = load_wav_16k(args.wav)
     conf = load_config(args.config) if args.config else None
+
+    bundle = None
+    if args.model == "end2end":
+        import torch
+
+        from .models.convert import load_generator_gru_checkpoint
+        if not args.end2end_checkpoint:
+            raise SystemExit("--model end2end needs --end2end-checkpoint")
+        windows = _end2end_windows(wav, max_frames=args.max_frames)
+        print(f"{windows.shape[0]} windows of 4 s (end2end)")
+        gen = load_generator_gru_checkpoint(args.end2end_checkpoint,
+                                            device=args.device)
+        # one batch over every window; the reference loops window at a
+        # time (inference.py:67-80)
+        codes = gen.sample(torch.as_tensor(windows, device=gen.device)
+                           ).cpu().numpy().astype(np.int32)
+        print(f"sampled codes {codes.shape}")
+    else:
+        codes, bundle = _match_codes(args, wav)
+
     model = load_vqvae_checkpoint(args.vqvae_checkpoint,
                                   conf.vqvae if conf else VQVAEConfig(),
                                   device=args.device)
@@ -212,10 +299,83 @@ def cmd_generate(args):
         pipeline = MotionPipeline.from_json(f.read())
     mean = np.asarray(conf.data_mean) if conf and conf.data_mean else None
     std = np.asarray(conf.data_std) if conf and conf.data_std else None
+
+    pose_transform = None
+    if args.resync:
+        # stage-2 resync (ResyncGestureKNN.py:155-175): the trained UNet
+        # re-syncs the decoded KNN motion to the audio's MFCCs before BVH
+        if bundle is None:
+            if not args.train_database:
+                raise SystemExit("--resync needs --train-database (the "
+                                 "mfcc/body stats source)")
+            bundle = DatabaseBundle.load(args.train_database)
+        pose_transform = _make_resync_transform(
+            args.resync, wav, bundle, resolve_device(args.device))
+        print(f"applying ResyncNet from {args.resync}")
     bvh_path, _ = render_result(codes, model, pipeline, args.out,
                                 args.prefix, data_mean=mean, data_std=std,
-                                smoothing=args.smooth)
+                                smoothing=args.smooth,
+                                pose_transform=pose_transform)
+    if args.model == "end2end":
+        # the reference also keeps the sampled code string
+        # (inference.py:96)
+        code_path = os.path.join(args.out, f"code_{args.prefix}.npy")
+        np.save(code_path, codes)
+        print(f"wrote {code_path}")
     print(f"wrote {bvh_path}")
+
+
+def cmd_resync_apply(args):
+    """Stage-2 resync of KNN output (ResyncGestureKNN.py:43-87,155-175):
+    load knn_pred, normalize with the train database's stats, run the
+    trained generator over every sequence in one batch on the device, and
+    save the resynced motion under the same npz schema."""
+    from .device import resolve_device
+    from .models.convert import load_resync_checkpoint
+    from .models.resync import predict_resynced_gesture, resync_stats
+
+    dev = resolve_device(args.device)
+    knn = np.load(args.knn)["knn_pred"]
+    test = np.load(args.test_data)
+    mfcc_test = test["mfcc"][:, :, :args.n_mfcc].astype(np.float32)
+    train = np.load(args.train_database)
+    stats = resync_stats(train["mfcc"][:, :, :args.n_mfcc], train["body"])
+
+    # knn_pred ships in the reference's (N, J, T) layout
+    # (ResyncGestureKNN.py:160); --layout ntj takes (N, T, J)
+    knn_motion = knn.transpose(0, 2, 1) if args.layout == "njt" else knn
+    n_seq = args.frames or knn_motion.shape[0]
+    knn_motion = knn_motion[:n_seq].astype(np.float32)
+    mfcc_test = mfcc_test[:n_seq]
+    if mfcc_test.shape[1] != knn_motion.shape[1]:
+        raise SystemExit(f"test mfcc {mfcc_test.shape} and knn motion "
+                         f"{knn_motion.shape} differ in frames")
+    gen = load_resync_checkpoint(args.checkpoint, device=dev)
+    out = predict_resynced_gesture(gen, mfcc_test, knn_motion, *stats)
+    if args.layout == "njt":
+        out = out.transpose(0, 2, 1)
+    np.savez_compressed(args.out, knn_pred=out)
+    print(f"wrote {args.out}: resynced knn_pred {out.shape}")
+
+
+def cmd_verify_release(args):
+    """The real-artifact acceptance gate (pipelines/release.py)."""
+    from .pipelines.release import verify_release
+
+    overrides = {
+        "train_db": args.train_db, "test_db": args.test_db,
+        "train_code": args.train_code, "signature": args.signature,
+        "train_wavlm": args.train_wavlm, "test_wavlm": args.test_wavlm,
+        "train_wavvq": args.train_wavvq, "test_wavvq": args.test_wavvq,
+        "checkpoint": args.checkpoint,
+    }
+    card = verify_release(args.root, overrides=overrides,
+                          expected=args.expected, config=args.config,
+                          out=args.out, subsample=args.subsample,
+                          budget_s=args.budget_s, seed=args.seed,
+                          device=args.device)
+    if not card["ok"]:
+        raise SystemExit(1)
 
 
 def cmd_warmup(args):
@@ -554,13 +714,16 @@ def main(argv=None):
     m.add_argument("--desired-k", type=int, default=0)
     m.add_argument("--feat-dtype", default=None,
                    choices=["float32", "bfloat16", "float16"],
-                   help="audio feature-DB residency dtype (only float32 is "
-                        "ported yet)")
+                   help="audio feature-DB residency dtype (bf16/f16 halve "
+                        "the resident database; cosine presets only, the "
+                        "wavvq strings ignore it)")
     m.add_argument("--max-frames", type=int, default=0)
     m.add_argument("--ties", default="stable",
                    choices=["stable", "reference"],
-                   help="tie policy: 'stable' (deterministic, all-device); "
-                        "'reference' is not ported yet")
+                   help="tie policy: 'stable' (deterministic, all-device) "
+                        "or 'reference' (bit-parity with the original "
+                        "binary's unstable introsort + f64 rank sums; "
+                        "phase 1 on the device, the fusion on the host)")
     m.add_argument("--sharded", default="auto",
                    choices=["auto", "never", "always"],
                    help="database sharding: one device only ('always' is "
@@ -587,8 +750,10 @@ def main(argv=None):
     g.add_argument("--model", choices=("matching", "end2end"),
                    default="matching",
                    help="'matching' = KNN against the database (default); "
-                        "'end2end' is not ported yet")
-    g.add_argument("--train-database")
+                        "'end2end' = the w/o-motion-matching GRU baseline "
+                        "(codebook/inference.py)")
+    g.add_argument("--train-database",
+                   help="required for --model matching (and for --resync)")
     g.add_argument("--train-codebook")
     g.add_argument("--codebook-signature")
     g.add_argument("--train-wavlm")
@@ -596,21 +761,80 @@ def main(argv=None):
     g.add_argument("--wavvq-checkpoint",
                    help="fairseq vq-wav2vec .pt (--preset wavvq)")
     g.add_argument("--wavlm-checkpoint",
-                   help="Microsoft WavLM .pt (--preset shipped)")
+                   help="Microsoft WavLM .pt (every preset but wavvq)")
+    g.add_argument("--end2end-checkpoint", metavar="CKPT",
+                   help="reference Generator_gru weights (end2end_*.bin) "
+                        "for --model end2end")
+    g.add_argument("--max-frames", type=int, default=0,
+                   help="clamp end2end generation length "
+                        "(inference.py MAX_FRAMES)")
     g.add_argument("--vqvae-checkpoint", required=True)
     g.add_argument("--pipeline", required=True,
                    help="MotionPipeline JSON snapshot")
     g.add_argument("--config")
-    g.add_argument("--preset", default="wavvq", choices=["shipped", "wavvq"])
+    g.add_argument("--preset", default="wavvq", choices=PRESET_CHOICES,
+                   help="match preset: wavvq presets encode with "
+                        "vq-wav2vec, every other with WavLM")
     g.add_argument("--out", default="./output")
     g.add_argument("--prefix", default="generated")
     g.add_argument("--smooth", action="store_true")
     g.add_argument("--video", action="store_true",
                    help="not ported yet")
-    g.add_argument("--resync", metavar="CKPT", help="not ported yet")
+    g.add_argument("--resync", metavar="CKPT",
+                   help="apply a trained ResyncNet to the decoded motion "
+                        "(reference best_model.pth)")
     g.add_argument("--device", default="cuda",
                    help="torch device (default cuda; raises without a GPU)")
     g.set_defaults(fn=cmd_generate)
+
+    ra = sub.add_parser(
+        "resync-apply",
+        help="stage-2 ResyncNet application to KNN output "
+             "(ResyncGestureKNN.py:43-87)")
+    ra.add_argument("--knn", required=True,
+                    help="npz with knn_pred (N, J, T) motion")
+    ra.add_argument("--test-data", required=True,
+                    help="npz with test 'mfcc' (N, T, >=13)")
+    ra.add_argument("--train-database", required=True,
+                    help="npz with train 'mfcc' + 'body' (the stats "
+                         "source, ResyncGestureKNN.main:126-137)")
+    ra.add_argument("--checkpoint", required=True)
+    ra.add_argument("--out", required=True)
+    ra.add_argument("--frames", type=int, default=0,
+                    help="resync only the first N sequences (0 = all; "
+                         "the reference's frames arg)")
+    ra.add_argument("--layout", choices=("njt", "ntj"), default="njt")
+    ra.add_argument("--n-mfcc", type=int, default=13)
+    ra.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; raises without a GPU)")
+    ra.set_defaults(fn=cmd_resync_apply)
+
+    vr = sub.add_parser(
+        "verify-release",
+        help="one-command acceptance gate on the reference's published "
+             "artifact tree (README quick start layout)")
+    vr.add_argument("root", help="artifact root containing data/ and "
+                                 "pretrained_model/")
+    vr.add_argument("--expected",
+                    help="result.npz produced by the original reference "
+                         "binary, for byte-exact index parity")
+    vr.add_argument("--config", help="codebook.yml for the VQ-VAE shape "
+                                     "and data mean/std")
+    vr.add_argument("--out", help="write the gate's result.npz here")
+    vr.add_argument("--budget-s", type=float, default=5.0,
+                    help="wall-clock budget for the warm quick-start match")
+    vr.add_argument("--subsample", type=int, default=8,
+                    help="database sequences for the exact-parity harness")
+    vr.add_argument("--seed", type=int,
+                    help="override the match rng seed (the reference pins "
+                         "123456 at import, GestureKNN.py:19-22)")
+    for k in ("train-db", "test-db", "train-code", "signature",
+              "train-wavlm", "test-wavlm", "train-wavvq", "test-wavvq",
+              "checkpoint"):
+        vr.add_argument(f"--{k}", help=f"override the {k} artifact path")
+    vr.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; raises without a GPU)")
+    vr.set_defaults(fn=cmd_verify_release)
 
     wu = sub.add_parser(
         "warmup", help="build the CUDA kernels and run every serving path "
@@ -635,8 +859,8 @@ def main(argv=None):
     wu.add_argument("--desired-k", type=int, default=0)
     wu.add_argument("--feat-dtype", default=None,
                     choices=["float32", "bfloat16", "float16"],
-                    help="feature-DB residency dtype (only float32 is ported "
-                         "yet)")
+                    help="feature-DB residency dtype (match the production "
+                         "--feat-dtype)")
     wu.add_argument("--streams", type=int, default=0,
                     help="also run one StreamingPool tick for this many "
                          "streams, and one solo StreamingSession push")

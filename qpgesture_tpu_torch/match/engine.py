@@ -25,7 +25,7 @@ scores, and the same random draw order.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,10 +33,11 @@ import torch
 from ..core.config import MatchConfig
 from ..device import DeviceLike, resolve_device, to_device
 from ..ops.levenshtein_cuda import levenshtein_matrix
+from ..ops.precision import mm_nt_f32, split_bf16
 from ..ops.ranking import rank, rank_np
 from .database import MatchDatabase
 from .geometry import phase_start
-from .oracle import CodeKNNOracle, OracleResult
+from .oracle import CandidateTable, CodeKNNOracle, OracleResult
 
 # Rows of the (rows, 512, 512) int32 selection-score tensor materialised at
 # once by _tabulate_selection: 128 rows is 128 MB.
@@ -50,11 +51,34 @@ def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
     return x / torch.where(n > 0, n, torch.ones_like(n))
 
 
-def cosine_distance_prenorm(q: torch.Tensor,
-                            dn: torch.Tensor) -> torch.Tensor:
-    """(Q, D) x (N, D) -> (Q, N) cosine distances, the database side already
-    row-normalized. A true float32 matmul (TF32 is off package-wide)."""
-    return 1.0 - _l2_normalize(q) @ dn.T
+def cosine_distance_prenorm(q: torch.Tensor, dn) -> torch.Tensor:
+    """(Q, D) x (N, D) -> (Q, N) float32 cosine distances, the database side
+    already row-normalized, as device_match_db stages it:
+
+      * a float32 tensor: a true float32 matmul (TF32 is off package-wide),
+        the "highest" precision;
+      * its bfloat16 split (hi, lo), the "high" precision (bf16x3): the
+        query's hi and lo go as 2Q rows through one GEMM against the
+        database's hi, and q_hi through one against its lo, summed in
+        matmul_bf16x3's order hi.hi + (hi.lo + lo.hi);
+      * a bfloat16 (hi) or float16 tensor: one GEMM of the query, normalized
+        in float32 and cast down to the database's type, with a float32
+        output: the "default" precision, or low-precision residency.
+
+    Every product sums and returns float32; the database is never widened
+    to float32 on the card."""
+    qn = _l2_normalize(q)
+    if isinstance(dn, tuple):
+        d_hi, d_lo = dn
+        q_hi, q_lo = split_bf16(qn)
+        Q = qn.shape[0]
+        both = mm_nt_f32(torch.cat((q_hi, q_lo)), d_hi)      # (2Q, N)
+        sim = both[:Q] + (mm_nt_f32(q_hi, d_lo) + both[Q:])
+    elif dn.dtype == torch.float32:
+        sim = qn @ dn.T
+    else:
+        sim = mm_nt_f32(qn.to(dn.dtype), dn)
+    return 1.0 - sim
 
 
 def segment_min_argmin(dist: torch.Tensor, seg: torch.Tensor, k: int,
@@ -134,7 +158,11 @@ def tables_from_minargs(cfg: MatchConfig, mins: torch.Tensor,
 @dataclass
 class DeviceMatchDB:
     """Staged database tensors resident on the device."""
-    aud_feat: Optional[torch.Tensor]    # (J*B, D) f32 or (J, B[, G], L) i32
+    # (J*B, D) row-normalized cosine features: f32 ("highest"), its bf16
+    # split (hi, lo) ("high"), hi alone ("default"), or bf16/f16 (low
+    # residency); or (J, B[, G], L) i32 wavvq strings
+    aud_feat: Optional[Union[torch.Tensor, Tuple[torch.Tensor,
+                                                 torch.Tensor]]]
     aud_codes: Optional[torch.Tensor]   # (J, B) i64
     aud_blocks: Optional[torch.Tensor]  # (J, B, step) i64
     aud_starts: Optional[torch.Tensor]  # (B,) i64 phase window starts
@@ -166,25 +194,104 @@ def _head_tail_grid(phase: torch.Tensor, amp: torch.Tensor,
                         tail.reshape(JB, 8, 16)), dim=1)
 
 
+_RESIDENCY = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+_PRECISIONS = ("highest", "high", "default")
+# rows of a float32 database normalized and split on the card at once by
+# _stage_split: 64 MB of float32 beside the resident hi / lo
+SPLIT_CHUNK_BYTES = 64 << 20
+
+
+def stage_cosine_features(flat: np.ndarray, feat_dtype: str) -> torch.Tensor:
+    """Host-side residency prep for a cosine feature database: float32
+    row-normalize (zero rows stay zero) on the host, then cast to the
+    residency dtype, rounding to nearest even as the JAX package's
+    ml_dtypes / numpy casts do. Returns a CPU tensor whose bits equal the
+    JAX package's ``stage_cosine_features``. Normalizing on the host keeps
+    the device's peak at the low-precision database alone."""
+    if feat_dtype not in _RESIDENCY:
+        raise ValueError(
+            f"unsupported residency feat_dtype {feat_dtype!r}: expected "
+            f"'float32' (no staging) or one of {sorted(_RESIDENCY)}")
+    flat = np.asarray(flat, np.float32)
+    n = np.linalg.norm(flat, axis=-1, keepdims=True)
+    flat = flat / np.where(n > 0, n, 1.0)
+    return torch.from_numpy(np.ascontiguousarray(flat)).to(
+        _RESIDENCY[feat_dtype])
+
+
+def _stage_split(flat: np.ndarray, precision: str, device: torch.device):
+    """A float32 cosine database, row-normalized on the device as the
+    "highest" path normalizes it, kept as its bf16 split: (hi, lo) for
+    "high", hi for "default". Row chunks of SPLIT_CHUNK_BYTES go up and are
+    split in turn, so the float32 database is never resident whole."""
+    N, D = flat.shape
+    hi = torch.empty((N, D), dtype=torch.bfloat16, device=device)
+    lo = torch.empty_like(hi) if precision == "high" else None
+    rows = max(1, SPLIT_CHUNK_BYTES // (4 * D))
+    for s in range(0, N, rows):
+        x = _l2_normalize(torch.as_tensor(flat[s:s + rows],
+                                          dtype=torch.float32, device=device))
+        h, l = split_bf16(x)
+        hi[s:s + rows] = h
+        if lo is not None:
+            lo[s:s + rows] = l
+    return hi if lo is None else (hi, lo)
+
+
+def _stage_aud_feat(cfg: MatchConfig, flat: np.ndarray,
+                    device: torch.device):
+    """The resident audio cosine database for cfg's feat_dtype and
+    cosine_precision (see DeviceMatchDB.aud_feat). Under low residency the
+    precision is moot, as in the JAX package."""
+    if cfg.feat_dtype != "float32":
+        return stage_cosine_features(flat, cfg.feat_dtype).to(device)
+    if cfg.cosine_precision not in _PRECISIONS:
+        raise ValueError(f"cosine_precision {cfg.cosine_precision!r}: "
+                         f"expected one of {_PRECISIONS}")
+    if cfg.cosine_precision == "highest":
+        return _l2_normalize(torch.as_tensor(flat, dtype=torch.float32,
+                                             device=device))
+    return _stage_split(flat, cfg.cosine_precision, device)
+
+
+_DTYPE_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2}
+
+
+def estimate_devdb_bytes(cfg: MatchConfig, db: MatchDatabase) -> int:
+    """Device bytes device_match_db stages (the dominant residents; the
+    small code/block/start tables are counted too, at the JAX package's
+    4 bytes an index). The audio database takes 2 bytes an element under
+    bf16/f16 residency and at "default" (hi), else 4 (float32, or hi + lo
+    at "high")."""
+    total = 0
+    if cfg.use_aud:
+        if cfg.audio_mode == "wavvq_feat":
+            total += db.aud_strings.size * 4
+        else:
+            per = _DTYPE_BYTES[cfg.feat_dtype]
+            if cfg.feat_dtype == "float32" and \
+                    cfg.cosine_precision == "default":
+                per = 2
+            total += db.aud_feat.size * per
+        total += db.aud_codes.size * 4 + db.aud_blocks.size * 4
+    if cfg.use_txt:
+        total += db.txt_feat.size * 4
+        total += db.txt_codes.size * 4 + db.txt_blocks.size * 4
+    return total
+
+
 def device_match_db(cfg: MatchConfig, db: MatchDatabase,
                     device: torch.device) -> DeviceMatchDB:
-    if cfg.feat_dtype != "float32":
-        raise NotImplementedError(
-            f"feat_dtype={cfg.feat_dtype!r} is not ported yet (float32 only)")
-    if cfg.cosine_precision != "highest":
-        raise NotImplementedError(
-            f"cosine_precision={cfg.cosine_precision!r} is not ported yet "
-            "(cosine distances run in true float32)")
     starts = lambda frames: _index_tensor(phase_start(frames), device)
     aud = (None,) * 4
     if cfg.use_aud:
         if cfg.audio_mode == "wavvq_feat":
+            # int32 strings: feat_dtype and cosine_precision do not apply
             feat = torch.as_tensor(db.aud_strings, dtype=torch.int32,
                                    device=device)
         else:
-            flat = db.aud_feat.reshape(-1, db.aud_feat.shape[-1])
-            feat = _l2_normalize(torch.as_tensor(flat, dtype=torch.float32,
-                                                 device=device))
+            feat = _stage_aud_feat(
+                cfg, db.aud_feat.reshape(-1, db.aud_feat.shape[-1]), device)
         aud = (feat, _index_tensor(db.aud_codes, device),
                _index_tensor(db.aud_blocks, device), starts(db.aud_frames))
     txt = (None,) * 4
@@ -620,6 +727,73 @@ class CodeKNNEngine:
         codes, phases, votes, (W, S) = self.predict_device(
             test_audio, test_context, init_code, init_phase, rng)
         return self._result(codes.cpu().numpy(), phases, votes, W, S)
+
+    def _host_tables(self, side: str, mins: np.ndarray, args: np.ndarray,
+                     matched: np.ndarray, W: int, S: int):
+        """Oracle CandidateTables ([W][S] lists) from phase 1's raw per-code
+        (min, argmin, matched) host arrays: the handoff between the device
+        and the host reference-ties fusion. The tables hold the dtypes the
+        JAX package's hold (float32 dist, int32 block, seq and frame): the
+        unstable sort's tie order depends on them."""
+        db, cfg = self.db, self.cfg
+        if side == "aud":
+            codes, blocks, frames = db.aud_codes, db.aud_blocks, db.aud_frames
+        else:
+            codes, blocks, frames = db.txt_codes, db.txt_blocks, db.txt_frames
+        J, B = codes.shape
+        flat_blocks = blocks.reshape(J * B, cfg.step_sz)
+        code_rep = np.tile(np.arange(cfg.codebook_size, dtype=np.int32)
+                           [:, None], (1, cfg.step_sz))
+        out = []
+        for w in range(W):
+            row = []
+            for s in range(S):
+                qi = w * S + s
+                m = matched[qi]
+                blk = np.where(m[:, None], flat_blocks[args[qi]], code_rep)
+                seq = np.where(m, args[qi] // B, 0).astype(np.int32)
+                frame = np.where(m, frames[args[qi] % B], 0).astype(np.int32)
+                row.append(CandidateTable(
+                    dist=mins[qi].astype(np.float32),
+                    block=blk.astype(np.int32), seq=seq, frame=frame))
+            out.append(row)
+        return out
+
+    def predict_reference_ties(self, test_audio: Optional[np.ndarray],
+                               test_context: Optional[np.ndarray] = None,
+                               init_code: Optional[int] = None,
+                               init_phase: Optional[np.ndarray] = None,
+                               rng: Optional[np.random.RandomState] = None
+                               ) -> OracleResult:
+        """Bit-parity mode against the reference binary, not just the
+        stable-tie engine.
+
+        The reference ranks with NumPy's default unstable introsort
+        (argsort().argsort(), GestureKNN.py:540,553) and sums ranks in
+        float64; integer edit distances tie heavily, so tie order is
+        observable. Phase 1 (the O(database) candidate scoring: K1 for the
+        wavvq preset, the cosine GEMM otherwise) runs on the device and its
+        per-code (mins, args, matched) come to the host once; phase 2 (the
+        per-step fusion over 512-element rank rows) runs in the oracle's
+        tie_kind='reference' path, in the reference's own arithmetic.
+        Exact for wavvq_feat; cosine modes carry the device's float32
+        distance rounding (float64 in the reference).
+
+        NumPy's unstable sort may order ties differently on another CPU, so
+        results are compared within one process on one host."""
+        cfg = self.cfg
+        lead = test_audio if test_audio is not None else test_context
+        W, S = lead.shape[:2]
+        ta, tc = self.stage_queries(test_audio, test_context)
+        raw = [None if side is None else [t.cpu().numpy() for t in side]
+               for side in _raw_tables_impl(cfg, self.devdb, ta, tc)]
+        aud_tables = self._host_tables("aud", *raw[0], W, S) \
+            if cfg.use_aud else None
+        txt_tables = self._host_tables("txt", *raw[1], W, S) \
+            if cfg.use_txt else None
+        oracle = CodeKNNOracle(self.db, tie_kind="reference")
+        return oracle.predict_with_tables(aud_tables, txt_tables, init_code,
+                                          init_phase, rng)
 
     def _batch_inputs(self, C: int, W: int, S: int,
                       clip_audio: Optional[np.ndarray],

@@ -5,9 +5,11 @@ Microsoft's WavLM's, fairseq's vq-wav2vec's, Hugging Face BERT's), so
 reference checkpoints load with ``load_state_dict``
 (``load_vqvae_checkpoint`` here, ``models/wavlm.load_wavlm_checkpoint``,
 ``models/vq_wav2vec.load_vq_wav2vec_checkpoint``,
-``models/minilm.load_minilm``, ``load_pae_checkpoint`` here). The
+``models/minilm.load_minilm``, ``load_pae_checkpoint``,
+``load_resync_checkpoint`` and ``load_generator_gru_checkpoint`` here). The
 ``*_from_jax`` functions are the inverses of the JAX package's converters
-(``models/torch_convert.convert_vqvae`` and ``convert_pae``,
+(``models/torch_convert.convert_vqvae``, ``convert_pae``,
+``convert_resync`` and ``convert_generator_gru``,
 ``models/wavlm.convert_wavlm``,
 ``models/vq_wav2vec.convert_vq_wav2vec``, ``models/minilm.convert_minilm``):
 they map a flax parameter tree back to a state_dict.
@@ -27,8 +29,10 @@ import torch
 
 from ..core.config import PAEConfig, VQVAEConfig
 from ..device import DeviceLike
+from .gru_baseline import GeneratorGRU
 from .minilm import MiniLMConfig
 from .pae import PAE
+from .resync import ResyncNet
 from .vq_wav2vec import VQWav2VecConfig
 from .vqvae import VQVAE
 from .wavlm import WavLMConfig, weight_norm
@@ -94,21 +98,26 @@ def _layer_norm(p: Dict, key: str, out: Dict) -> None:
     out[f"{key}.bias"] = _t(p["bias"])
 
 
+def _batchnorm(p: Dict, st: Dict, key: str, out: Dict) -> None:
+    """flax BatchNorm params + batch_stats -> BatchNorm1d tensors;
+    ``num_batches_tracked``, which the flax tree does not hold, is 0."""
+    out[f"{key}.weight"] = _t(p["scale"])
+    out[f"{key}.bias"] = _t(p["bias"])
+    out[f"{key}.running_mean"] = _t(st["mean"])
+    out[f"{key}.running_var"] = _t(st["var"])
+    out[f"{key}.num_batches_tracked"] = torch.tensor(0)
+
+
 def pae_state_dict_from_jax(variables: Dict,
                             cfg: PAEConfig) -> Dict[str, torch.Tensor]:
     """The JAX package's PAE variables ({'params', 'batch_stats'}) -> the
     port's (and the reference's) PAE state_dict: the inverse of
-    ``convert_pae``. BatchNorm's ``num_batches_tracked``, which the flax
-    tree does not hold, is 0."""
+    ``convert_pae``."""
     params, stats = variables["params"], variables["batch_stats"]
     sd: Dict[str, torch.Tensor] = {}
 
     def batchnorm(name: str, key: str) -> None:
-        sd[f"{key}.weight"] = _t(params[name]["scale"])
-        sd[f"{key}.bias"] = _t(params[name]["bias"])
-        sd[f"{key}.running_mean"] = _t(stats[name]["mean"])
-        sd[f"{key}.running_var"] = _t(stats[name]["var"])
-        sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
+        _batchnorm(params[name], stats[name], key, sd)
 
     _conv1d(params["conv1"], "conv1", sd)
     batchnorm("bn_conv1", "bn_conv1")
@@ -121,6 +130,52 @@ def pae_state_dict_from_jax(variables: Dict,
     _conv1d(params["deconv1"], "deconv1", sd)
     batchnorm("bn_deconv1", "bn_deconv1")
     _conv1d(params["deconv2"], "deconv2", sd)
+    return sd
+
+
+_RESYNC_BLOCKS = [(f"dconv_down{i}", f"down{i}") for i in (1, 2, 3, 4)] + \
+    [(f"dconv_up{i}", f"up{i}") for i in (3, 2, 1)]
+
+
+def resync_state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """The JAX package's ResyncNet variables -> the port's (and the
+    reference's) ResyncNet state_dict: the inverse of ``convert_resync``
+    (down{i}/up{i} -> dconv_down{i}/dconv_up{i}, conv{0,1} at .0/.3,
+    norm{0,1} at .1/.4, last -> conv_last)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    for tkey, fkey in _RESYNC_BLOCKS:
+        for i, (conv_idx, bn_idx) in enumerate(((0, 1), (3, 4))):
+            _conv1d(params[fkey][f"conv{i}"], f"{tkey}.{conv_idx}", sd)
+            _batchnorm(params[fkey][f"norm{i}"], stats[fkey][f"norm{i}"],
+                       f"{tkey}.{bn_idx}", sd)
+    _conv1d(params["last"], "conv_last", sd)
+    return sd
+
+
+def generator_gru_state_dict_from_jax(variables: Dict, layers: int = 2
+                                      ) -> Dict[str, torch.Tensor]:
+    """The JAX package's GeneratorGRU variables -> the port's (and the
+    reference's) Generator_gru state_dict: the inverse of
+    ``convert_generator_gru``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    enc, enc_s = params["wav_encoder"], stats["wav_encoder"]
+    for i, k in enumerate((0, 3, 6, 9)):
+        _conv1d(enc[f"conv{i}"], f"WavEncoder.feat_extractor.{k}", sd)
+        _batchnorm(enc[f"bn{i}"], enc_s[f"bn{i}"],
+                   f"WavEncoder.feat_extractor.{k + 1}", sd)
+    _conv1d(enc["conv4"], "WavEncoder.feat_extractor.12", sd)
+    for layer in range(layers):
+        for direction, suffix in (("f", ""), ("b", "_reverse")):
+            g = params[f"gru{layer}_{direction}"]
+            for name in ("ih", "hh"):
+                sd[f"project.weight_{name}_l{layer}{suffix}"] = _t(
+                    np.asarray(g[f"w_{name}"]).T)
+                sd[f"project.bias_{name}_l{layer}{suffix}"] = _t(
+                    g[f"b_{name}"])
+    _layer_norm(params["norm"], "norm", sd)
+    _dense(params["out"], "out", sd)
     return sd
 
 
@@ -302,3 +357,44 @@ def load_pae_checkpoint(path: str, cfg: PAEConfig,
     model = PAE(cfg, device=device)
     model.load_state_dict(sd)
     return model
+
+
+def _load_reference_state_dict(path: str, key: str, what: str) -> Dict:
+    """The state_dict of a reference torch checkpoint file: the ``key``
+    entry of the pickled dict, or a bare state_dict, without the
+    DataParallel prefix. A directory (an orbax checkpoint of the JAX
+    package's trainer) raises: training is not ported yet."""
+    import os
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"{what} checkpoints are not ported yet: {path} is a directory "
+            "(an orbax checkpoint); pass a reference torch checkpoint file")
+    ckpt = _torch_load_reference(path)
+    return strip_prefix(ckpt.get(key, ckpt))
+
+
+def load_resync_checkpoint(path: str, device: DeviceLike = "cuda"
+                           ) -> ResyncNet:
+    """A reference ResyncNet checkpoint ({'model_resync_state_dict': sd},
+    train_resync_gestureknn.save_model, or a bare sd) as a port ResyncNet
+    in eval mode; its in/out widths are read off the weights."""
+    sd = _load_reference_state_dict(path, "model_resync_state_dict",
+                                    "train-resync")
+    model = ResyncNet(in_features=sd["dconv_down1.0.weight"].shape[1],
+                      out_features=sd["conv_last.weight"].shape[0],
+                      device=device)
+    model.load_state_dict(sd)
+    return model.eval()
+
+
+def load_generator_gru_checkpoint(path: str, device: DeviceLike = "cuda"
+                                  ) -> GeneratorGRU:
+    """A reference Generator_gru checkpoint ({'model_dict': sd},
+    end2end.py:119-128, or a bare sd) as a port GeneratorGRU in eval mode;
+    its hidden and output widths are read off the weights."""
+    sd = _load_reference_state_dict(path, "model_dict", "train-end2end")
+    model = GeneratorGRU(hidden=sd["project.weight_hh_l0"].shape[1],
+                         output=sd["out.weight"].shape[0], device=device)
+    model.load_state_dict(sd)
+    model.project.flatten_parameters()
+    return model.eval()

@@ -143,12 +143,16 @@ class PhaseExtractor:
 
     def velocity(self, pose: np.ndarray, data_mean: np.ndarray,
                  data_std: np.ndarray) -> torch.Tensor:
-        """Normalised frame-difference velocities, padded 120 / 119 rows
-        (whatever the window length, as the JAX package pads), uploaded
-        once: (T + 238, C_in) float32 on the device."""
+        """Normalised frame-difference velocities, padded 120 rows in front
+        and 119 + max(0, frames - 240) behind, uploaded once: (T + 238 +
+        max(0, frames - 240), C_in) float32 on the device. The JAX package
+        pads 120 / 119 whatever the window length and gathers with clamped
+        indices, so a window longer than 240 frames reads zero rows past the
+        end: the extra tail rows are those zeros."""
         std = np.clip(data_std, 0.01, None)
         pose = (pose - data_mean) / std
-        vel = np.pad(pose[1:] - pose[:-1], ((120, 119), (0, 0)))
+        tail = 119 + max(0, self.model.cfg.frames - 240)
+        vel = np.pad(pose[1:] - pose[:-1], ((120, tail), (0, 0)))
         return torch.as_tensor(vel.astype(np.float32), device=self.device)
 
     def pose_to_phase(self, pose: np.ndarray, data_mean: np.ndarray,

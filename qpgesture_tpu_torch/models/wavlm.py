@@ -59,6 +59,7 @@ from torch import nn
 
 from ..device import DeviceLike, resolve_device
 from ..ops import flash_attention_cuda
+from ..ops.precision import matmul_bf16x3, mm_f32
 
 LN_EPS = 1e-6       # flax nn.LayerNorm's default, as the JAX package uses
 NORM_EPS = 1e-5     # group norm and wav normalisation, as the JAX code writes
@@ -106,33 +107,6 @@ class WavLMConfig:
                    max_distance=1280)
 
 
-def _mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b for (M, K) @ (K, N) or (G, M, K) @ (G, K, N) bfloat16
-    operands, with float32 sums and output: a
-    cuBLAS bfloat16 GEMM that writes float32 on the card, a float32
-    product of the (exactly widened) operands on the CPU."""
-    mm = torch.mm if a.dim() == 2 else torch.bmm
-    if a.is_cuda:
-        return mm(a, b, out_dtype=torch.float32)
-    return mm(a.float(), b.float())
-
-
-def split_bf16(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x = hi + lo + O(2^-16 |x|): hi = bf16(x), lo = bf16(x - hi)."""
-    hi = x.to(torch.bfloat16)
-    return hi, (x - hi.float()).to(torch.bfloat16)
-
-
-def matmul_bf16x3(a: torch.Tensor, b) -> torch.Tensor:
-    """float32 a @ b at the "high" precision (bf16x3): a_hi.b_hi + (a_hi.b_lo +
-    a_lo.b_hi), three bfloat16 products with float32 sums and outputs. `b`
-    is a float32 tensor or its (hi, lo) split (cached weight copies)."""
-    a_hi, a_lo = split_bf16(a)
-    b_hi, b_lo = split_bf16(b) if isinstance(b, torch.Tensor) else b
-    return _mm_bf16(a_hi, b_hi) + (_mm_bf16(a_hi, b_lo)
-                                   + _mm_bf16(a_lo, b_hi))
-
-
 def bf16_copy(module: nn.Module, key: str, make) -> torch.Tensor:
     """A bfloat16 weight derived from `module`'s parameters by make(),
     kept on the module and made again only when a parameter changes (in
@@ -153,7 +127,7 @@ def matmul_weight(module: nn.Module, x: torch.Tensor, key: str, make,
     `module` whose bfloat16 copies (hi, and lo for "high") are cached."""
     hi = bf16_copy(module, key, make)
     if precision == "default":
-        return _mm_bf16(x.to(torch.bfloat16), hi)
+        return mm_f32(x.to(torch.bfloat16), hi)
     lo = bf16_copy(module, key + ".lo", lambda: make() - hi.float())
     return matmul_bf16x3(x, (hi, lo))
 

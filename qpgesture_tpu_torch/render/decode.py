@@ -74,12 +74,17 @@ def poses_to_bvh(poses: np.ndarray, pipeline: MotionPipeline,
 def render_result(codes: np.ndarray, model: VQVAE,
                   pipeline: MotionPipeline, out_dir: str, prefix: str,
                   data_mean=None, data_std=None, smoothing: bool = False,
-                  write_positions: bool = True
-                  ) -> Tuple[str, Optional[str]]:
+                  write_positions: bool = True,
+                  pose_transform=None) -> Tuple[str, Optional[str]]:
     """Full decode path; writes '<prefix>_generated.bvh' (+ positions npy).
-    Returns (bvh_path, npy_path)."""
+    Returns (bvh_path, npy_path). pose_transform, when given, maps the
+    denormalized (T, 135) poses to new poses between decode and BVH: the
+    ResyncNet hook (ResyncGestureKNN.py:43-87 runs after the KNN, before
+    visualization)."""
     os.makedirs(out_dir, exist_ok=True)
     poses = decode_codes(model, codes, data_mean, data_std)
+    if pose_transform is not None:
+        poses = np.asarray(pose_transform(poses), np.float32)
     bvh = poses_to_bvh(poses, pipeline, smoothing=smoothing)
     bvh_path = os.path.join(out_dir, f"{prefix}_generated.bvh")
     with open(bvh_path, "w") as f:

@@ -323,3 +323,102 @@ def test_codebook_signature_on_card_matches_cpu(cuda):
                          codebook_signature(cpu, mean, std)):
         assert got.dtype == want.dtype and got.shape == want.shape
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("precision,feat_dtype", [
+    ("high", "float32"), ("default", "float32"), ("highest", "bfloat16"),
+    ("highest", "float16")])
+def test_cosine_tables_on_card_match_cpu(cuda, precision, feat_dtype):
+    """The cosine tables at "high" (bf16x3) and "default", and under bf16 /
+    f16 residency. A database cast on the host is bit-equal on both
+    devices; a split made on each device from its own float32-normalized
+    rows agrees within one bfloat16 step ("default") or 2e-5 (hi + lo).
+    Each device's distances are within 1e-5 of a float64 evaluation of its
+    own rounded operands, and the codes are equal. (The devices' float32
+    normalizations may differ by an ulp, which can move a component across
+    a 16-bit rounding edge: their distances are not compared directly.)"""
+    from qpgesture_tpu_torch.match import engine as eng
+    rng = np.random.RandomState(15)
+    fx = make_fixture(rng, n_seq=6, n_test=3, codebook=64)
+    cfg = dataclasses.replace(MATCH_PRESETS["shipped"], codebook_size=64,
+                              cosine_precision=precision,
+                              feat_dtype=feat_dtype)
+    db = stage_database(cfg, fx["bundle"], fx["codes"], fx["signature"],
+                        wavlm=fx["wavlm"])
+    ta = stage_test_audio(cfg, db, wavlm=fx["test_wavlm"])
+    tc = stage_test_context(db, fx["test_context"])
+    cpu = CodeKNNEngine(cfg, db, device="cpu")
+    card = CodeKNNEngine(cfg, db, device=cuda)
+    def parts(engine):
+        feat = engine.devdb.aud_feat
+        return feat if isinstance(feat, tuple) else (feat,)
+
+    staged = [parts(e) for e in (cpu, card)]
+    assert [t.dtype for t in staged[0]] == [t.dtype for t in staged[1]]
+    if feat_dtype != "float32":
+        assert torch.equal(staged[0][0], staged[1][0].cpu())
+    else:
+        recon = [sum(t.cpu().double() for t in side) for side in staged]
+        tol = 2e-5 if precision == "high" else 2.0 ** -8
+        assert float((recon[0] - recon[1]).abs().max()) <= tol
+    from qpgesture_tpu_torch.ops.precision import split_bf16
+    q = torch.from_numpy(ta.reshape(-1, ta.shape[-1]))
+    for engine, qd in ((cpu, q), (card, q.to(cuda))):
+        dn = engine.devdb.aud_feat
+        got = eng.cosine_distance_prenorm(qd, dn).double()
+        qn = eng._l2_normalize(qd)
+        if isinstance(dn, tuple):
+            q_hi, q_lo = (t.double() for t in split_bf16(qn))
+            d_hi, d_lo = (t.double() for t in dn)
+            want = 1 - (q_hi @ d_hi.T + q_hi @ d_lo.T + q_lo @ d_hi.T)
+        else:
+            want = 1 - qn.to(dn.dtype).double() @ dn.double().T
+        assert float((got - want).abs().max()) <= 1e-5
+    np.testing.assert_array_equal(card.predict(ta, tc).codes,
+                                  cpu.predict(ta, tc).codes)
+
+
+def test_reference_ties_on_card_match_cpu(cuda):
+    """wavvq: phase 1's integer distances through K1 on the card, the same
+    host fusion: codes, phases and votes equal exactly."""
+    cpu, card, ta, tc = _wavvq_engines(cuda)
+    want = cpu.predict_reference_ties(ta, tc)
+    before = levenshtein_cuda.launches
+    got = card.predict_reference_ties(ta, tc)
+    assert levenshtein_cuda.launches == before + 1
+    np.testing.assert_array_equal(got.codes, want.codes)
+    np.testing.assert_array_equal(got.phases, want.phases)
+    np.testing.assert_array_equal(got.votes, want.votes)
+
+
+def test_resync_on_card_matches_cpu(cuda):
+    from qpgesture_tpu_torch.models.resync import (ResyncNet,
+                                                   predict_resynced_gesture)
+    torch.manual_seed(16)
+    cpu = ResyncNet(device="cpu")
+    card = ResyncNet(device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    card.eval()
+    rng = np.random.RandomState(16)
+    mfcc = rng.randn(4, 240, 13).astype(np.float32)
+    knn = rng.randn(4, 240, 135).astype(np.float32)
+    stats = (np.zeros(13), np.ones(13), np.zeros(135), np.ones(135))
+    want = predict_resynced_gesture(cpu, mfcc, knn, *stats)
+    got = predict_resynced_gesture(card, mfcc, knn, *stats)
+    assert float(np.abs(got - want).max()) <= 1e-3 * float(knn.std())
+
+
+def test_generator_gru_codes_on_card_match_cpu(cuda):
+    from qpgesture_tpu_torch.models.gru_baseline import GeneratorGRU
+    torch.manual_seed(17)
+    cpu = GeneratorGRU(device="cpu")
+    card = GeneratorGRU(device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    card.project.flatten_parameters()
+    card.eval()
+    wins = torch.from_numpy((0.2 * np.random.RandomState(17).randn(
+        3, 64000)).astype(np.float32))
+    with torch.no_grad():
+        want, got = cpu(wins), card(wins.to(cuda)).cpu()
+    assert float((got - want).abs().max()) <= 1e-4
+    assert torch.equal(card.sample(wins.to(cuda)).cpu(), cpu.sample(wins))

@@ -30,7 +30,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
               "pipelines.database_builder", "pipelines.pitch_world",
               "pipelines.transcripts", "pipelines.audio_host",
               "pipelines.beat_assembly", "ops.mfcc", "train.data",
-              "utils.native", "serve"):
+              "utils.native", "serve", "match.oracle",
+              "pipelines.release", "models.resync", "models.gru_baseline",
+              "ops.precision"):
         assert f"qpgesture_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -106,6 +108,37 @@ def test_entry_points_default_to_cuda(tmp_path):
               "--out", str(tmp_path / "db")])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["test-audio", "--wav", missing])
+
+    from qpgesture_tpu_torch.models.convert import (
+        load_generator_gru_checkpoint, load_resync_checkpoint)
+    from qpgesture_tpu_torch.models.gru_baseline import GeneratorGRU
+    from qpgesture_tpu_torch.models.resync import (ResyncNet,
+                                                   predict_resynced_gesture)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ResyncNet(22, 9)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GeneratorGRU(hidden=8, output=16)
+    resync = ResyncNet(22, 9, device="cpu")
+    gru = GeneratorGRU(hidden=8, output=16, device="cpu")
+    torch.save({"model_resync_state_dict": resync.state_dict()},
+               str(tmp_path / "resync.pth"))
+    torch.save({"model_dict": gru.state_dict()}, str(tmp_path / "gru.bin"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_resync_checkpoint(str(tmp_path / "resync.pth"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_generator_gru_checkpoint(str(tmp_path / "gru.bin"))
+    # a CPU model's output goes nowhere else: the host arrays come back
+    out = predict_resynced_gesture(
+        resync, np.zeros((1, 8, 13), np.float32), np.zeros((1, 8, 9),
+                                                           np.float32),
+        np.zeros(13), np.ones(13), np.zeros(9), np.ones(9))
+    assert out.shape == (1, 8, 9)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["verify-release", missing])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["resync-apply", "--knn", missing, "--test-data", missing,
+              "--train-database", missing, "--checkpoint", missing,
+              "--out", missing])
 
     # generate: every input it reads before the first device is resolved
     from test_torch_rawwav import _write_generate_inputs

@@ -85,12 +85,17 @@ def test_velocity_input_matches_jax():
 
 
 @pytest.mark.parametrize("kw,n,batch", [(TINY, 40, 1024), (TINY, 40, 16),
-                                        ({}, 64, 24)],
-                         ids=["tiny", "tiny-tail", "default"])
+                                        ({}, 64, 24),
+                                        (dict(TINY, frames=241), 40, 16),
+                                        (dict(TINY, frames=256), 40, 1024)],
+                         ids=["tiny", "tiny-tail", "default", "frames241",
+                              "frames256"])
 def test_pose_to_phase_matches_jax(kw, n, batch):
     """At PAEConfig(frames=16) the 120 / 119 padding of the default window
     applies all the same; at the default config (240 frames, 15 joints x 9,
-    8 channels) a 64-frame pose, with an exact-size tail batch."""
+    8 channels) a 64-frame pose, with an exact-size tail batch. Windows
+    longer than 240 frames (241, 256) read past the padded tail, where the
+    JAX package's clamped gather reads zero rows."""
     model = port_pae(2, **kw)
     jmodel, variables = jax_pae(model, **kw)
     cfg = model.cfg

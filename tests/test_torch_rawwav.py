@@ -216,7 +216,7 @@ def _write_generate_inputs(tmp_path, fx, rng, preset):
     wav_path = str(tmp_path / "speech.wav")
     audio_prep.write_wav(wav_path, rng.randn(72000) * 0.1, 16000)
     torch.manual_seed(6)
-    if preset == "shipped":
+    if preset != "wavvq":
         # WavLM's own conv stack (the loaders ignore the checkpoint's), a
         # narrow 1-layer encoder whose width matches the fixture's
         # 32-dim database features
@@ -256,10 +256,11 @@ def _write_generate_inputs(tmp_path, fx, rng, preset):
             "--preset", preset, "--prefix", "g"]
 
 
-@pytest.mark.parametrize("preset", ["shipped", "wavvq"])
+@pytest.mark.parametrize("preset", ["shipped", "wavvq", "no_text"])
 def test_generate_matches_jax(tmp_path, preset):
     """wav file -> BVH through both CLIs: equal BVH headers, motion within
-    1e-3 (the BVH text carries 6 decimals)."""
+    1e-3 (the BVH text carries 6 decimals). Every preset but wavvq encodes
+    with WavLM (no_text: WavLM cosine + phase, no text side)."""
     rng = np.random.RandomState(17)
     fx = make_fixture(rng, n_seq=4, n_test=1, codebook=64)
     args = _write_generate_inputs(tmp_path, fx, rng, preset)
