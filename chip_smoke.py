@@ -57,7 +57,17 @@ counts set to 0 just before it and read just after:
                verify-release --device cuda on a tree in the published
                layout; generate --resync, resync-apply and generate --model
                end2end with a full-width ResyncNet and GeneratorGRU against
-               the CPU port.
+               the CPU port;
+  phase 17     training: train-vqvae at the shipped width (batch 256, 3
+               epochs with validation, --resume for a 4th), decode and
+               signature from its output directory, train-pae and
+               train-end2end (GRU targets: the trained VQ-VAE's codes) and
+               generate --model end2end from their directories; one step
+               of each trainer card against CPU, a VQ-VAE step under sync
+               debug mode "error", each step's time, windows/s, idle share
+               and peak memory; phase 15's train split rebuilt with the
+               trained VQ-VAE's codes and the trained PAE's phases, served
+               (wavvq, K1) against the CPU port.
 
 It prints one line per check. The last three lines are the card's name and
 power limit, one JSON object with every kernel's launches, error and
@@ -126,6 +136,31 @@ BF16_TC_FLOPS = 989e12      # bfloat16 tensor cores, dense
 # two). K1 runs above the 64/clock of the integer-only units on the
 # whole-corpus shape, so this is the peak its operations are held to.
 ALU_OPS_PER_SM_CLOCK = 128
+# phase 17, training: synthetic clips of 60 s at 60 fps, windowed at stride
+# 32 (106 windows a clip: 16 steps of 256 per epoch from 40 clips)
+TRAIN_CLIPS, VAL_CLIPS, TRAIN_CLIP_FRAMES = 40, 8, 3600
+TRAIN_BATCH = 256           # TrainConfig.batch_size
+PAE_EPOCHS = 3
+E2E_WINDOWS, E2E_EPOCHS = 256, 5
+TRAIN_TIMED_STEPS = 10
+# the models' configurations: the defaults (VQVAEConfig, PAEConfig,
+# End2EndConfig) are the repo's shipped widths
+TRAIN_SECTIONS = {"VQVAE": {}, "PAE": {}, "end2end": {}}
+# one training step, card against CPU from the same state and batch: float32
+# on both sides (TF32 off), other summation orders (cuDNN's autotuning picks
+# them anew in every run). Loss relative, and the EMA codebook statistics
+# and BatchNorm running statistics relative to each tensor's largest
+# magnitude: these hold the forward pass tightly. Gradients per tensor as
+# ||g_card - g_cpu|| / ||g_cpu||, 1e-2: an L1 loss term takes the other
+# sign where output and target agree to rounding (each such element moves
+# dL/dx by 2/N), and the PAE's phase heads end in atan2(v1, v0), whose
+# gradient grows as 1/|v|^2 near the origin; on an H100 both reached 1e-3
+# to 2e-3 in some runs, an error in the step gives O(1). The PAE's
+# BatchNorms average 240-tap conv outputs (32 400 products each): 1e-4.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-2
+TRAIN_STATS_RTOL = 1e-5
+PAE_STATS_RTOL = 1e-4
 # device_ms's spin ahead of the timed calls: ~50 ms at the H100's 1980 MHz
 SLEEP_CYCLES = 100_000_000
 
@@ -1328,13 +1363,13 @@ def check_codes(name: str, vq_gpu, norm, got, want) -> None:
         da, db = ((x - a) ** 2).sum(), ((x - b) ** 2).sum()
         scale = (x ** 2).sum() + max((a ** 2).sum(), (b ** 2).sum())
         gaps.append(abs(da - db) / scale)
-        log(f"phase 15 {name} code differs at window {n} slot {t}: card "
+        log(f"{name} code differs at window {n} slot {t}: card "
             f"{got[n, t]} vs CPU {want[n, t]}, distance gap {da - db:+.3e} "
             f"(relative {gaps[-1]:.3e}, tol {CODE_GAP_RTOL})")
     if gaps and max(gaps) > CODE_GAP_RTOL:
         raise SystemExit(f"{name}: card codes differ from the CPU port's by "
                          f"more than float32 rounding")
-    log(f"phase 15 {name} codes: {got.size - len(diff)}/{got.size} equal to "
+    log(f"{name} codes: {got.size - len(diff)}/{got.size} equal to "
         f"the CPU port's")
 
 
@@ -1472,7 +1507,7 @@ def phase_build(dev, rng, shipped, vqvae_cpu, tmp: str):
         s: builder.encode_windows(vq_gpu, b.body, mean, std)
         for s, b in bundles.items()})
     for s, b in bundles.items():
-        check_codes(f"encode_windows {s}", vq_gpu, norm[s], codes[s],
+        check_codes(f"phase 15 encode_windows {s}", vq_gpu, norm[s], codes[s],
                     builder.encode_windows(vq_cpu, b.body, mean, std))
     (sig_code, sig_poses, sig), signature_s = seconds(
         lambda: codebook_signature(vq_gpu, mean, std))
@@ -2259,6 +2294,526 @@ def phase16_resync_end2end(dev, rng, tmp, vqvae_cpu):
     log(f"phase 16 GRU kernels: {rnn[:6]}")
 
 
+# -- phase 17: training on the card ------------------------------------------
+
+def training_clips(rng, n_clips: int, frames: int):
+    """Seeded synthetic pose clips with temporal structure: per channel a
+    sum of three sinusoids (0.2-3 Hz at 60 fps, random phases) plus noise,
+    (frames, 135) float32 each."""
+    import numpy as np
+    t = np.arange(frames)[:, None] / 60.0
+    clips = []
+    for _ in range(n_clips):
+        x = np.zeros((frames, 135))
+        for _ in range(3):
+            f = rng.uniform(0.2, 3.0, 135)
+            x += rng.uniform(0.1, 0.5, 135) * np.sin(
+                2 * np.pi * f * t + rng.uniform(0, 2 * np.pi, 135))
+        x += 0.05 * rng.randn(frames, 135) + rng.randn(135)
+        clips.append({"poses": x.astype(np.float32)})
+    return clips
+
+
+def write_train_config(path: str, **top) -> None:
+    """The trainers' YAML: TRAIN_SECTIONS, TRAIN_BATCH, checkpoints every
+    2 epochs, and ``top``'s keys."""
+    import yaml
+    with open(path, "w") as f:
+        yaml.safe_dump({**TRAIN_SECTIONS, "batch_size": TRAIN_BATCH,
+                        "save_per_epochs": 2, **top}, f)
+
+
+def step_without_sync(step) -> None:
+    """One call of step under torch's sync debug mode "error": a host sync
+    inside it raises."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def grad_err(card_model, cpu_model, zero_grad=()):
+    """(worst ||g_card - g_cpu|| / ||g_cpu|| over the tensors, worst largest
+    element difference relative to that tensor's largest |g|). Tensors named
+    in zero_grad (gradient 0 analytically, rounding noise on both devices)
+    enter both as their largest difference relative to the model's largest
+    |g|."""
+    cpu_params = dict(cpu_model.named_parameters())
+    top = max(float(p.grad.abs().max()) for p in cpu_params.values())
+    norm_err = elem_err = 0.0
+    for name, p in card_model.named_parameters():
+        want = cpu_params[name].grad
+        diff = p.grad.cpu() - want
+        if name in zero_grad:
+            e = float(diff.abs().max()) / top
+            norm_err, elem_err = max(norm_err, e), max(elem_err, e)
+            continue
+        norm_err = max(norm_err, float(diff.norm() / want.norm()))
+        elem_err = max(elem_err, float(diff.abs().max() / want.abs().max()))
+    return norm_err, elem_err
+
+
+def bn_stats_err(card_model, cpu_model):
+    cpu_bufs = dict(cpu_model.named_buffers())
+    return max([rel_err(b, cpu_bufs[n])
+                for n, b in card_model.named_buffers() if "running" in n]
+               or [0.0])
+
+
+def rel_err(card, cpu) -> float:
+    """Largest difference of two tensors relative to the CPU one's largest
+    magnitude."""
+    return float((card.cpu() - cpu).abs().max()) / max(
+        float(cpu.abs().max()), 1e-30)
+
+
+def time_trainer(name: str, step, windows: int, n: int = TRAIN_TIMED_STEPS):
+    """Step ms from CUDA events around n steps after 3 warm-up steps,
+    windows/s, peak memory of those steps, and a profile of 3 steps (device
+    busy, idle share, top kernels)."""
+    import torch
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        step()
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / n
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def three():
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+
+    log(f"phase 17 {name}: step_ms={step_ms:.3f} over {n} steps (CUDA "
+        f"events) = {1e3 * windows / step_ms:.1f} windows/s at batch "
+        f"{windows}; peak max_memory_allocated {peak:.3f} GiB")
+    log_profile(f"phase 17 {name} 3 steps", three)
+    return step_ms
+
+
+def phase17_vqvae(dev, rng, tmp: str, pipeline):
+    """train-vqvae at the shipped width (3 epochs with validation, then
+    --resume for one more), decode and signature from the output
+    directory, DeviceClipStore against the host batches, one step card
+    against CPU at batch 8, a step under sync debug mode "error", and the
+    step's time at batch 256. Returns the output directory."""
+    import numpy as np
+    import torch
+    from qpgesture_tpu_torch.cli import main as cli
+    from qpgesture_tpu_torch.core.config import TrainConfig, VQVAEConfig
+    from qpgesture_tpu_torch.core.schemas import CodebookSignature
+    from qpgesture_tpu_torch.models.convert import load_vqvae_checkpoint
+    from qpgesture_tpu_torch.models.vqvae import codebook_signature
+    from qpgesture_tpu_torch.motion.bvh import parse_bvh
+    from qpgesture_tpu_torch.train.checkpoints import restore_checkpoint
+    from qpgesture_tpu_torch.train.data import (DeviceClipStore,
+                                                WindowedDataset)
+    from qpgesture_tpu_torch.train.train_vqvae import VQVAETrainer
+    from qpgesture_tpu_torch.utils.metrics_log import ScalarHistory
+    p = lambda *names: os.path.join(tmp, *names)
+
+    t0 = time.time()
+    clips = training_clips(rng, TRAIN_CLIPS + VAL_CLIPS, TRAIN_CLIP_FRAMES)
+    flat = np.concatenate([c["poses"] for c in clips[:TRAIN_CLIPS]])
+    mean, std = flat.mean(0), flat.std(0)
+    train = WindowedDataset.from_clips(clips[:TRAIN_CLIPS], 240, 32,
+                                       data_mean=mean, data_std=std)
+    train.save(p("train"))
+    WindowedDataset.from_clips(clips[TRAIN_CLIPS:], 240, 32, data_mean=mean,
+                               data_std=std).save(p("val"))
+    write_train_config(p("train.yml"), val_data_path=p("val"))
+    log(f"phase 17 data: {TRAIN_CLIPS} + {VAL_CLIPS} clips of "
+        f"{TRAIN_CLIP_FRAMES} frames (135 channels, sinusoids + noise), "
+        f"{len(train)} train windows at stride 32; {time.time() - t0:.1f} s")
+
+    # the device data path: one upload, windows gathered on the card
+    store = DeviceClipStore(clips[:TRAIN_CLIPS], 240, 32, mean, std,
+                            device=dev)
+    got = next(iter(store.batches(TRAIN_BATCH, seed=0)))
+    want = next(iter(WindowedDataset.load(p("train")).batches(TRAIN_BATCH,
+                                                              seed=0)))
+    if not np.array_equal(got.cpu().numpy(), want):
+        raise SystemExit("DeviceClipStore batch differs from the host batch")
+
+    out = p("vq")
+    base = ["train-vqvae", "--config", p("train.yml"), "--data",
+            p("train"), "--out", out, "--device", str(dev)]
+    t0 = time.time()
+    cli(base + ["--epochs", "3"])
+    t_train = time.time() - t0
+    t0 = time.time()
+    cli(base + ["--epochs", "4", "--resume"])
+    t_resume = time.time() - t0
+    files = sorted(os.listdir(out))
+    hist = ScalarHistory.read(os.path.join(out, "scalars.jsonl"))
+    latest = restore_checkpoint(out, "latest")
+    val = hist["val_err"]
+    losses = [v for _, _, v in hist["loss"]]
+    spe = len(train) // TRAIN_BATCH
+    log(f"phase 17 train-vqvae: 3 epochs {t_train:.1f} s, --resume to 4 "
+        f"{t_resume:.1f} s ({spe} steps of {TRAIN_BATCH} per epoch; CLI "
+        f"wall, "
+        f"validation and checkpoints included); files {files}; val_err by "
+        f"epoch {[(e, round(v, 5)) for e, _, v in val]}; first-step loss "
+        f"by epoch {[round(v, 5) for v in losses]}; latest step "
+        f"{latest['step']} epoch {latest['epoch']}")
+    if not {"best.pt", "latest.pt", "002.pt", "004.pt",
+            "scalars.jsonl"} <= set(files):
+        raise SystemExit(f"train-vqvae wrote {files}")
+    if [e for e, _, _ in val] != [1, 2, 3, 4, 4, 5] or \
+            (latest["step"], latest["epoch"]) != (4 * spe, 4):
+        raise SystemExit("train-vqvae --resume numbered its epochs wrong")
+    if not (losses[-1] < losses[0] and val[-1][2] < val[0][2]
+            and np.isfinite(losses).all()):
+        raise SystemExit("train-vqvae: the loss did not fall")
+
+    # decode and signature from the output directory (its best.pt)
+    cfg = VQVAEConfig(**TRAIN_SECTIONS["VQVAE"])
+    np.savez(p("result.npz"), knn_pred=rng.randint(0, cfg.l_bins, (2, 30)))
+    with open(p("pipeline.json"), "w") as f:
+        f.write(pipeline.to_json())
+    cli(["decode", "--result", p("result.npz"), "--checkpoint", out,
+         "--config", p("train.yml"), "--pipeline", p("pipeline.json"),
+         "--out", p("bvh"), "--prefix", "trained", "--device", str(dev)])
+    bvh = parse_bvh(p("bvh", "trained_generated.bvh"))
+    cli(["signature", "--checkpoint", out, "--config", p("train.yml"),
+         "--out", p("code.npz"), "--device", str(dev)])
+    vq_card = load_vqvae_checkpoint(out, cfg, device=dev)
+    sig = CodebookSignature.load(p("code.npz"))
+    _, _, want_sig = codebook_signature(vq_card)
+    sig_err = float(np.abs(sig.signature - want_sig).max())
+    log(f"phase 17 decode --checkpoint <out>: BVH {bvh.values.shape}; "
+        f"signature --checkpoint <out>: {sig.signature.shape}, against "
+        f"codebook_signature of best.pt's model {sig_err:.3e}")
+    if bvh.values.shape[0] != 480 or not np.isfinite(bvh.values).all() \
+            or sig_err > 0:
+        raise SystemExit("decode / signature from the trained checkpoint")
+
+    # one step card against CPU, full width at batch 8, from latest.pt
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH)
+    cpu = VQVAETrainer(cfg, tcfg, steps_per_epoch=spe, device="cpu")
+    card = VQVAETrainer(cfg, tcfg, steps_per_epoch=spe, device=dev)
+    cpu.load_state_dict(latest)
+    card.load_state_dict(restore_checkpoint(out, "latest"))
+    x8 = got[:8].cpu()
+    codes_cpu = cpu.model.encode(x8)
+    codes_card = card.model.encode(x8.to(dev)).cpu()
+    t0 = time.time()
+    loss_cpu, _ = cpu.train_step(x8)
+    t_cpu = time.time() - t0
+    loss_card, metrics = card.train_step(x8.to(dev))
+    a, b = card.model.codebook_block, cpu.model.codebook_block
+    used = b.k_elem >= 1.0
+    errs = {"loss": abs(float(loss_card) - float(loss_cpu))
+            / float(loss_cpu),
+            "grad": grad_err(card.model, cpu.model),
+            "k_sum": rel_err(a.k_sum, b.k_sum),
+            "k_elem": rel_err(a.k_elem, b.k_elem),
+            "k_used": rel_err(a.k[used.to(dev)], b.k[used])}
+    log(f"phase 17 VQ-VAE step card vs CPU port (full width, batch 8, from "
+        f"latest.pt with its Adam state): loss rel {errs['loss']:.3e} "
+        f"(tol {TRAIN_LOSS_RTOL}), gradients {errs['grad'][0]:.3e} (tol "
+        f"{TRAIN_GRAD_RTOL}; largest element {errs['grad'][1]:.3e} of its "
+        f"tensor's max), EMA k_sum {errs['k_sum']:.3e}"
+        f" k_elem {errs['k_elem']:.3e} used rows of k {errs['k_used']:.3e} "
+        f"of each tensor's max (tol {TRAIN_STATS_RTOL}); codes in use "
+        f"{int(used.sum())} (card {int(metrics['usage'])}); CPU step "
+        f"{t_cpu:.1f} s")
+    check_codes("phase 17 VQ-VAE step batch", card.model, x8.numpy(),
+                codes_card.numpy(), codes_cpu.numpy())
+    if errs["loss"] > TRAIN_LOSS_RTOL or errs["grad"][0] > TRAIN_GRAD_RTOL or \
+            max(errs["k_sum"], errs["k_elem"], errs["k_used"]) > \
+            TRAIN_STATS_RTOL or not torch.equal(a.k_elem.cpu() >= 1.0, used):
+        raise SystemExit("VQ-VAE training step: card differs from CPU")
+    del cpu
+
+    # the step on device-resident batches, with no host sync; its time
+    trainer = VQVAETrainer(cfg, tcfg, steps_per_epoch=spe, device=dev)
+    trainer.load_state_dict(restore_checkpoint(out, "latest"))
+    x = next(iter(store.batches(TRAIN_BATCH, seed=1)))
+    trainer.train_step(x)
+    step_without_sync(lambda: trainer.train_step(x))
+    log(f"phase 17 VQ-VAE step at batch {TRAIN_BATCH} under "
+        "torch.cuda.set_sync_debug_mode('error'): no host sync")
+    n_params = sum(q.numel() for q in trainer.model.parameters())
+    time_trainer(f"VQ-VAE ({n_params} parameters, batch {TRAIN_BATCH} x "
+                 "240 frames)", lambda: trainer.train_step(x), TRAIN_BATCH)
+    if dev.type == "cuda":
+        vqvae_heuristic_step()
+    return out
+
+
+def vqvae_heuristic_step(n: int = 5) -> None:
+    """The same VQ-VAE step with cuDNN's heuristic algorithm choice (the
+    trainer's cudnn_autotune replaced by a no-op), in a process of its own:
+    cuDNN's plan cache would hand this one the timed choices already made."""
+    code = f"""
+import contextlib, sys, torch
+sys.path.insert(0, {REPO!r})
+import qpgesture_tpu_torch.train.train_vqvae as tv
+from qpgesture_tpu_torch.core.config import TrainConfig, VQVAEConfig
+tv.cudnn_autotune = contextlib.nullcontext
+dev = torch.device("cuda")
+g = torch.Generator(dev).manual_seed({SEED})
+x = torch.randn({TRAIN_BATCH}, 240, 135, device=dev, generator=g)
+tr = tv.VQVAETrainer(VQVAEConfig(**{TRAIN_SECTIONS['VQVAE']!r}),
+                     TrainConfig(batch_size={TRAIN_BATCH}), device=dev)
+tr.init_codebook(x)
+for _ in range(2):
+    tr.train_step(x)
+torch.cuda.synchronize()
+torch.cuda.reset_peak_memory_stats()
+start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+start.record()
+for _ in range({n}):
+    tr.train_step(x)
+end.record()
+end.synchronize()
+print(f"{{start.elapsed_time(end) / {n}:.3f}} "
+      f"{{torch.cuda.max_memory_allocated() / 2 ** 30:.3f}}")
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600)
+    if out.returncode:
+        raise SystemExit(f"VQ-VAE heuristic step: {out.stderr[-2000:]}")
+    step_ms, peak = out.stdout.split()[-2:]
+    log(f"phase 17 VQ-VAE step with cuDNN's heuristic algorithms (no "
+        f"autotune; a process of its own): step_ms={step_ms} over {n} steps "
+        f"at batch {TRAIN_BATCH}; peak max_memory_allocated {peak} GiB")
+
+
+def phase17_pae(dev, tmp: str):
+    """train-pae at the PAE's configuration on phase 17's windows, one step
+    card against CPU at batch 8, the step's time at batch 32. Returns the
+    trained PAE (on the card)."""
+    import numpy as np
+    import torch
+    from qpgesture_tpu_torch.cli import main as cli
+    from qpgesture_tpu_torch.core.config import PAEConfig
+    from qpgesture_tpu_torch.models.convert import load_pae_checkpoint
+    from qpgesture_tpu_torch.train.checkpoints import restore_checkpoint
+    from qpgesture_tpu_torch.train.data import WindowedDataset
+    from qpgesture_tpu_torch.train.train_pae import PAETrainer
+    from qpgesture_tpu_torch.utils.metrics_log import ScalarHistory
+    p = lambda *names: os.path.join(tmp, *names)
+
+    out = p("pae")
+    t0 = time.time()
+    cli(["train-pae", "--config", p("train.yml"), "--data", p("train"),
+         "--out", out, "--epochs", str(PAE_EPOCHS), "--device", str(dev)])
+    losses = [v for _, _, v in ScalarHistory.read(
+        os.path.join(out, "scalars.jsonl"))["loss"]]
+    latest = restore_checkpoint(out, "latest")
+    log(f"phase 17 train-pae: {PAE_EPOCHS} epochs {time.time() - t0:.1f} s "
+        f"(batch 32, {latest['step']} steps; CLI wall); last-step loss by "
+        f"epoch {[round(v, 5) for v in losses]}")
+    if not (losses[-1] < losses[0] and np.isfinite(losses).all()):
+        raise SystemExit("train-pae: the loss did not fall")
+
+    cfg = PAEConfig(**TRAIN_SECTIONS["PAE"])
+    cpu = PAETrainer(cfg, device="cpu")
+    card = PAETrainer(cfg, device=dev)
+    cpu.load_state_dict(latest)
+    card.load_state_dict(restore_checkpoint(out, "latest"))
+    ds = WindowedDataset.load(p("train"))
+    x8 = torch.from_numpy(next(iter(ds.batches(8, seed=3))))
+    loss_cpu = cpu.train_step(x8)
+    loss_card = card.train_step(x8.to(dev))
+    fed = {"conv1.bias", "conv2.bias", "deconv1.bias"} | {
+        f"fc.{i}.bias" for i in range(cfg.phase_channels)}
+    errs = (abs(float(loss_card) - float(loss_cpu)) / float(loss_cpu),
+            grad_err(card.model, cpu.model, fed),
+            bn_stats_err(card.model, cpu.model))
+    log(f"phase 17 PAE step card vs CPU port (batch 8, from latest.pt): "
+        f"loss rel {errs[0]:.3e} (tol {TRAIN_LOSS_RTOL}), gradients "
+        f"{errs[1][0]:.3e} (tol {TRAIN_GRAD_RTOL}; largest element "
+        f"{errs[1][1]:.3e} of its tensor's max; the biases feeding a "
+        f"BatchNorm, gradient 0, against the model's max), BatchNorm "
+        f"statistics {errs[2]:.3e} (tol {PAE_STATS_RTOL} of each "
+        f"tensor's max)")
+    if errs[0] > TRAIN_LOSS_RTOL or errs[1][0] > TRAIN_GRAD_RTOL or \
+            errs[2] > PAE_STATS_RTOL:
+        raise SystemExit("PAE training step: card differs from CPU")
+    x32 = torch.from_numpy(next(iter(ds.batches(32, seed=4)))).to(dev)
+    time_trainer("PAE (135 x 240 -> 8 phases, batch 32)",
+                 lambda: card.train_step(x32), 32)
+    return load_pae_checkpoint(os.path.join(out, "latest.pt"), cfg,
+                               device=dev)
+
+
+def phase17_end2end(dev, rng, tmp: str, vq_out: str):
+    """train-end2end at hidden 200 and 512 codes on 64 000-sample windows
+    whose targets are the trained VQ-VAE's codes, generate --model end2end
+    from both output directories against the CPU port, one step card
+    against CPU at dropout 0, the step's time at batch 32."""
+    import numpy as np
+    import torch
+    from qpgesture_tpu_torch.cli import _end2end_windows
+    from qpgesture_tpu_torch.cli import main as cli
+    from qpgesture_tpu_torch.core.config import End2EndConfig, VQVAEConfig
+    from qpgesture_tpu_torch.models.convert import (
+        load_generator_gru_checkpoint, load_vqvae_checkpoint)
+    from qpgesture_tpu_torch.pipelines.audio_prep import write_wav
+    from qpgesture_tpu_torch.train.checkpoints import restore_checkpoint
+    from qpgesture_tpu_torch.train.data import WindowedDataset
+    from qpgesture_tpu_torch.train.train_end2end import End2EndTrainer
+    from qpgesture_tpu_torch.utils.metrics_log import ScalarHistory
+    p = lambda *names: os.path.join(tmp, *names)
+
+    ds = WindowedDataset.load(p("train"))
+    poses = np.asarray(ds.poses[:E2E_WINDOWS])
+    vq = load_vqvae_checkpoint(vq_out, VQVAEConfig(
+        **TRAIN_SECTIONS["VQVAE"]), device=dev)
+    norm = (poses - ds.data_mean) / np.clip(ds.data_std, 0.01, None)
+    codes = vq.encode(torch.as_tensor(norm.astype(np.float32), device=dev)
+                      ).cpu().numpy().astype(np.int32)
+    audio = np.stack([speech_like(rng, 4.0) for _ in range(E2E_WINDOWS)])
+    WindowedDataset(poses=poses, audio=audio, codes=codes).save(p("e2e"))
+    out = p("gru")
+    t0 = time.time()
+    cli(["train-end2end", "--config", p("train.yml"), "--data", p("e2e"),
+         "--out", out, "--epochs", str(E2E_EPOCHS), "--device", str(dev)])
+    losses = [v for _, _, v in ScalarHistory.read(
+        os.path.join(out, "scalars.jsonl"))["loss"]]
+    latest = restore_checkpoint(out, "latest")
+    log(f"phase 17 train-end2end: {E2E_EPOCHS} epochs "
+        f"{time.time() - t0:.1f} s ({E2E_WINDOWS} windows with the trained "
+        f"VQ-VAE's codes, {len(np.unique(codes))} distinct; batch 32, "
+        f"{latest['step']} steps; CLI wall); last-step loss by epoch "
+        f"{[round(v, 4) for v in losses]}")
+    if not (losses[-1] < losses[0] and np.isfinite(losses).all()):
+        raise SystemExit("train-end2end: the loss did not fall")
+
+    speech = speech_like(rng, 20.0)
+    write_wav(p("speech20.wav"), speech, 16000)
+    cli(["generate", "--wav", p("speech20.wav"), "--model", "end2end",
+         "--end2end-checkpoint", out, "--vqvae-checkpoint", vq_out,
+         "--config", p("train.yml"), "--pipeline", p("pipeline.json"),
+         "--out", p("gen"), "--prefix", "t", "--device", str(dev)])
+    got = np.load(p("gen", "code_t.npy"))
+    gru_cpu = load_generator_gru_checkpoint(out, device="cpu")
+    wins = _end2end_windows(load_wav(p("speech20.wav")))
+    with torch.no_grad():
+        logits = gru_cpu(torch.from_numpy(wins))
+    want = logits.argmax(-1).numpy()
+    if got.shape != want.shape:
+        raise SystemExit(f"end2end codes {got.shape} vs {want.shape}")
+    for w, s in np.argwhere(got != want):
+        top = torch.topk(logits[w, s], 2).values
+        if float(top[0] - top[1]) > 1e-6 * float(top[0].abs()):
+            raise SystemExit("end2end codes differ beyond float32 rounding")
+    log(f"phase 17 generate --model end2end from the trained directories: "
+        f"codes {got.shape}, {int((got == want).sum())}/{got.size} equal to "
+        f"the CPU port's")
+
+    cfg = End2EndConfig(**TRAIN_SECTIONS["end2end"])
+    cpu = End2EndTrainer(cfg, device="cpu")
+    cpu.model.dropout = 0.0
+    card = End2EndTrainer(cfg, device=dev)
+    card.model.dropout = 0.0
+    cpu.load_state_dict(latest)
+    card.load_state_dict(restore_checkpoint(out, "latest"))
+    wav8, codes8 = torch.from_numpy(audio[:8]), torch.from_numpy(codes[:8])
+    loss_cpu = cpu.train_step(wav8, codes8)
+    loss_card = card.train_step(wav8.to(dev), codes8.to(dev))
+    fed = {f"WavEncoder.feat_extractor.{k}.bias" for k in (0, 3, 6, 9)}
+    errs = (abs(float(loss_card) - float(loss_cpu)) / float(loss_cpu),
+            grad_err(card.model, cpu.model, fed),
+            bn_stats_err(card.model, cpu.model))
+    log(f"phase 17 GeneratorGRU step card vs CPU port (batch 8, dropout 0, "
+        f"from latest.pt): loss rel {errs[0]:.3e} (tol {TRAIN_LOSS_RTOL}), "
+        f"gradients {errs[1][0]:.3e} (tol {TRAIN_GRAD_RTOL}; largest element "
+        f"{errs[1][1]:.3e} of its tensor's max), BatchNorm statistics "
+        f"{errs[2]:.3e} (tol {TRAIN_STATS_RTOL} of each tensor's max)")
+    if errs[0] > TRAIN_LOSS_RTOL or errs[1][0] > TRAIN_GRAD_RTOL or \
+            errs[2] > TRAIN_STATS_RTOL:
+        raise SystemExit("GRU training step: card differs from CPU")
+    trainer = End2EndTrainer(cfg, device=dev)          # dropout 0.1
+    trainer.load_state_dict(restore_checkpoint(out, "latest"))
+    w32 = torch.from_numpy(audio[:32]).to(dev)
+    c32 = torch.from_numpy(codes[:32]).to(dev)
+    time_trainer("GeneratorGRU (hidden 200, 512 codes, batch 32 x 64000 "
+                 "samples)", lambda: trainer.train_step(w32, c32), 32)
+
+
+def phase17_serve(dev, built, vq_out: str, pae_card):
+    """Phase 15's train split rebuilt with the trained models: windows
+    re-encoded by the trained VQ-VAE, phases from the trained PAE through
+    PhaseExtractor, the trained codebook's signature; one wavvq request
+    served through K1 and decoded by the trained VQ-VAE, against the CPU
+    port's engine on the same database."""
+    import dataclasses as dc
+
+    import numpy as np
+    from qpgesture_tpu_torch.core.config import MATCH_PRESETS, VQVAEConfig
+    from qpgesture_tpu_torch.match.database import (stage_database,
+                                                    stage_test_audio,
+                                                    stage_test_context)
+    from qpgesture_tpu_torch.match.engine import CodeKNNEngine
+    from qpgesture_tpu_torch.models.convert import load_vqvae_checkpoint
+    from qpgesture_tpu_torch.models.pae import PhaseExtractor
+    from qpgesture_tpu_torch.models.vqvae import codebook_signature
+    from qpgesture_tpu_torch.core.schemas import CodebookSignature
+    from qpgesture_tpu_torch.ops import levenshtein_cuda as K1
+    from qpgesture_tpu_torch.pipelines import database_builder as builder
+    from qpgesture_tpu_torch.serve import RawWavServer, ServingPipeline
+
+    mean, std = built["mean"], built["std"]
+    vq_cfg = VQVAEConfig(**TRAIN_SECTIONS["VQVAE"])
+    vq_card = load_vqvae_checkpoint(vq_out, vq_cfg, device=dev)
+    vq_cpu = load_vqvae_checkpoint(vq_out, vq_cfg, device="cpu")
+    extractor = PhaseExtractor(pae_card, device=dev)
+    train_recs = [dc.replace(r, phase=extractor.pose_to_phase(
+        r.rotation, mean, std)) for r in built["recs"]
+        if builder.split_of(r.name) == "train"]
+    phased = builder.window_recordings(train_recs)
+    train = dc.replace(built["bundles"]["train"], phase=phased.phase)
+    codes = builder.encode_windows(vq_card, train.body, mean, std)
+    norm = (train.body - mean) / np.clip(std, 0.01, None)
+    check_codes("phase 17 trained encode_windows train", vq_card, norm,
+                codes, builder.encode_windows(vq_cpu, train.body, mean, std))
+    code, poses, sig = codebook_signature(vq_card, mean, std)
+    signature = CodebookSignature(code=code, poses=poses, signature=sig)
+    cfg = dc.replace(MATCH_PRESETS["wavvq"], codebook_size=sig.shape[0])
+    db = stage_database(cfg, train, codes, signature,
+                        wavvq=built["wavvq"]["train"])
+    test = built["bundles"]["test"]
+    wav, ctx = test.wav[:W], test.context[:W]
+    server = RawWavServer(CodeKNNEngine(cfg, db, device=dev), vq_card,
+                          built["wavvq_gpu"], mean, std)
+    before = K1.launches
+    got, poses = server.serve(wav, ctx, init_code=0,
+                              rng=np.random.RandomState(cfg.seed))
+    n1 = K1.launches - before
+    enc = server.encode(wav).cpu().numpy()
+    want, want_poses = ServingPipeline(
+        CodeKNNEngine(cfg, db, device="cpu"), vq_cpu, mean, std).serve(
+        stage_test_audio(cfg, db, wavvq=enc), stage_test_context(db, ctx),
+        init_code=0, rng=np.random.RandomState(cfg.seed))
+    pose_err = float(np.abs(poses - want_poses).max())
+    log(f"phase 17 served the rebuilt database (wavvq, J={len(train.body)} "
+        f"train windows: trained VQ-VAE codes, trained PAE phases "
+        f"{phased.phase.shape}, trained signature) for the test split's "
+        f"first {W} windows: K1 launches {n1}; codes == the CPU port's "
+        f"engine {np.array_equal(got, want)}; decoded by the trained VQ-VAE "
+        f"{poses.shape}, card vs CPU {pose_err:.3e} (tol {POSE_ATOL}); "
+        f"distinct codes {len(np.unique(got))}")
+    if n1 < 1 or got.shape != (W, 30) or not np.array_equal(got, want) or \
+            not np.isfinite(poses).all() or pose_err > POSE_ATOL:
+        raise SystemExit("phase 17: serving the trained database failed")
+    return n1
+
+
 def load_wav(path: str):
     from qpgesture_tpu_torch.pipelines.audio_prep import load_wav_16k
     return load_wav_16k(path)
@@ -2563,7 +3118,6 @@ def main() -> int:
     if not (k1 and k2):
         raise SystemExit("phase 15 did not launch both kernels")
     k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
-    del built
     phase_wall("phase 15")
 
     # -- phase 16: matching surface and generate extras --------------------
@@ -2582,6 +3136,22 @@ def main() -> int:
     k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
     del shipped
     phase_wall("phase 16")
+
+    # -- phase 17: training on the card -> the trained models served -------
+    with tempfile.TemporaryDirectory() as tmp:
+        K1.launches = K2.launches = 0
+        vq_out = phase17_vqvae(dev, rng, tmp, built["pipeline"])
+        torch.cuda.empty_cache()
+        pae_card = phase17_pae(dev, tmp)
+        phase17_end2end(dev, rng, tmp, vq_out)
+        phase17_serve(dev, built, vq_out, pae_card)
+        k1, k2 = K1.launches, K2.launches
+    log(f"phase 17 launches: K1 {k1}, K2 {k2} (WavLM is not on this path)")
+    if not k1:
+        raise SystemExit("phase 17 did not launch K1")
+    k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
+    del built
+    phase_wall("phase 17")
 
     # -- the kernels line and the result ------------------------------------
     kernels_line = {"kernels": [{

@@ -6,7 +6,8 @@ nothing from it. Plain tensor code is PyTorch; the reference's Pallas TPU
 kernels become hand-written CUDA kernels for Hopper (``csrc/``), each with a
 plain PyTorch version beside it.
 
-Ported so far (single-GPU serving, matching and database construction):
+Ported so far (single-GPU serving, matching, database construction and
+training):
 
   core/       typed configs + exact npz artifact schemas (copies)
   ops/        ranking, stacking, MFCC; Levenshtein (K1) and WavLM's gated
@@ -23,6 +24,10 @@ Ported so far (single-GPU serving, matching and database construction):
   render/     codes -> poses -> BVH
   pipelines/  wav reading/resampling, test-audio windowing, extraction,
               database construction, verify-release
+  train/      windowed datasets and the device clip store, checkpoints,
+              the VQ-VAE, PAE and GRU-baseline trainers
+  utils/      the native host library (WORLD pitch, the record store), the
+              scalar history
   serve.py    ServingPipeline, RawWavServer, the streaming classes
   cli.py      the subcommands listed in its docstring
 

@@ -12,6 +12,9 @@ Subcommands mirror the reference package's entry points:
   assemble-beat  make_beat_dataset.py step 1                  -> Audio/ Motion/
   resync-apply   ResyncGestureKNN.py stage 2                  -> knn_pred npz
   verify-release the acceptance gate on a published artifact tree
+  train-vqvae    train.py --config codebook.yml               -> <out>/*.pt
+  train-pae      PAE.py --stage train                         -> <out>/*.pt
+  train-end2end  end2end.py (the GRU baseline)                -> <out>/*.pt
 
 They take the reference package's flags; those that run a model also take
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch paths).
@@ -95,11 +98,13 @@ def cmd_match(args):
 
 
 def _load_vqvae(path: str, cfg, device):
+    """A reference torch checkpoint (.bin/.pt), or a train-vqvae output
+    directory (its best.pt)."""
     from .models.convert import load_vqvae_checkpoint
-    if not path.endswith((".bin", ".pt")):
+    if not (os.path.isdir(path) or path.endswith((".bin", ".pt"))):
         raise NotImplementedError(
-            "only reference torch checkpoints (.bin/.pt) are ported yet; "
-            f"got {path}")
+            "only reference torch checkpoints (.bin/.pt) and train-vqvae "
+            f"output directories are ported; got {path}")
     return load_vqvae_checkpoint(path, cfg, device=device)
 
 
@@ -256,16 +261,11 @@ def cmd_generate(args):
     from .core.config import VQVAEConfig, load_config
     from .core.schemas import DatabaseBundle
     from .device import resolve_device
-    from .models.convert import load_vqvae_checkpoint
     from .motion.pipeline import MotionPipeline
     from .render.decode import render_result
 
     if args.video:
         raise NotImplementedError("generate --video is not ported yet")
-    if not args.vqvae_checkpoint.endswith((".bin", ".pt")):
-        raise NotImplementedError(
-            "only reference torch checkpoints (.bin/.pt) are ported yet; "
-            f"got {args.vqvae_checkpoint}")
     if args.wav.endswith(".npz"):
         wav = np.load(args.wav)["wav"].astype(np.float32).reshape(-1)
     else:
@@ -292,9 +292,8 @@ def cmd_generate(args):
     else:
         codes, bundle = _match_codes(args, wav)
 
-    model = load_vqvae_checkpoint(args.vqvae_checkpoint,
-                                  conf.vqvae if conf else VQVAEConfig(),
-                                  device=args.device)
+    model = _load_vqvae(args.vqvae_checkpoint,
+                        conf.vqvae if conf else VQVAEConfig(), args.device)
     with open(args.pipeline) as f:
         pipeline = MotionPipeline.from_json(f.read())
     mean = np.asarray(conf.data_mean) if conf and conf.data_mean else None
@@ -696,6 +695,142 @@ def cmd_assemble_beat(args):
         print(f"audio prepared into {out_dir} (backend: {backend})")
 
 
+def _train_dataset(path: str, conf):
+    """A WindowedDataset directory, normalized with the config's statistics
+    when it has them (else the directory's stats.npz, if any)."""
+    from .train.data import WindowedDataset
+
+    ds = WindowedDataset.load(path)
+    if conf.data_mean is not None:
+        ds.data_mean = np.asarray(conf.data_mean)
+        ds.data_std = np.asarray(conf.data_std)
+    return ds
+
+
+def cmd_train_vqvae(args):
+    """train.py: the VQ-VAE on a WindowedDataset directory. Checkpoints go
+    to <out>/best.pt (validated on the config's val_data_path, when it names
+    one), latest.pt and {epoch:03d}.pt, the scalar history to
+    <out>/scalars.jsonl; --resume continues from <out>/latest.pt."""
+    from .core.config import load_config
+    from .device import resolve_device
+    from .train.checkpoints import checkpoint_path, restore_checkpoint
+    from .train.train_vqvae import VQVAETrainer
+    from .utils.metrics_log import ScalarHistory
+
+    dev = resolve_device(args.device)
+    conf = load_config(args.config)
+    ds = _train_dataset(args.data, conf)
+    batches = list(ds.batches(conf.train.batch_size, seed=0))
+    if not batches:
+        raise SystemExit(f"{args.data}: {len(ds)} windows, fewer than one "
+                         f"batch of {conf.train.batch_size}")
+    val_batches = None
+    if conf.val_data_path:
+        val = _train_dataset(conf.val_data_path, conf)
+        if conf.data_mean is None:
+            val.data_mean, val.data_std = ds.data_mean, ds.data_std
+        val_batches = list(val.batches(conf.train.batch_size, shuffle=False,
+                                       drop_last=False))
+    # the milestones are epochs (train.py:85): boundaries at m * batches
+    trainer = VQVAETrainer(conf.vqvae, conf.train,
+                           steps_per_epoch=len(batches), device=dev)
+    trainer.init_codebook(batches[0])
+    start_epoch = 1
+    initial_best = None
+    # an orbax 'latest' of the JAX trainer raises in restore_checkpoint
+    if args.resume and (os.path.isfile(checkpoint_path(args.out, "latest"))
+                        or os.path.isdir(os.path.join(args.out, "latest"))):
+        trainer.load_state_dict(restore_checkpoint(args.out, "latest"))
+        start_epoch = trainer.step // len(batches) + 1
+        hist_path = os.path.join(args.out, "scalars.jsonl")
+        if os.path.exists(hist_path):
+            prior = ScalarHistory.last(hist_path, "best_val_err")
+            if prior is not None:
+                initial_best = (float(prior), 0)
+        print(f"resumed from {args.out}/latest.pt at epoch {start_epoch}")
+    best = trainer.fit(batches, val_batches, epochs=args.epochs,
+                       checkpoint_dir=args.out, start_epoch=start_epoch,
+                       initial_best=initial_best)
+    print(f"best val: {best}")
+
+
+def cmd_train_pae(args):
+    """PAE.py --stage train on a WindowedDataset directory; {epoch:03d}.pt
+    every save_per_epochs and latest.pt at the end in --out."""
+    from .core.config import load_config
+    from .device import resolve_device
+    from .train.checkpoints import save_checkpoint
+    from .train.data import device_prefetch
+    from .train.train_pae import PAETrainer
+    from .utils.metrics_log import ScalarHistory
+
+    dev = resolve_device(args.device)
+    conf = load_config(args.config)
+    ds = _train_dataset(args.data, conf)
+    batches = list(ds.batches(max(args.batch_size, 8), seed=0))
+    trainer = PAETrainer(conf.pae, steps_per_epoch=max(len(batches), 1),
+                         device=dev)
+    epochs = args.epochs or conf.pae.epochs
+    hist = ScalarHistory(os.path.join(args.out, "scalars.jsonl")) \
+        if args.out else None
+    try:
+        for epoch in range(epochs):
+            for batch in device_prefetch(batches, dev):
+                loss = trainer.train_step(batch)
+            loss_v = float(loss)
+            print(f"epoch {epoch}: loss {loss_v:.5f}")
+            if hist:
+                hist.log(epoch=epoch, loss=loss_v)
+            if args.out and (epoch + 1) % conf.pae.save_per_epochs == 0:
+                save_checkpoint(args.out, trainer.state_dict(epoch),
+                                name=f"{epoch:03d}")
+    finally:
+        if hist:
+            hist.close()
+    if args.out:
+        save_checkpoint(args.out, trainer.state_dict(epochs - 1),
+                        name="latest")
+
+
+def cmd_train_end2end(args):
+    """end2end.py: the GRU baseline on a WindowedDataset directory holding
+    audio.npy and codes.npy; latest.pt at the end in --out."""
+    from .core.config import load_config
+    from .device import resolve_device
+    from .train.checkpoints import save_checkpoint
+    from .train.data import device_prefetch
+    from .train.train_end2end import End2EndTrainer
+    from .utils.metrics_log import ScalarHistory
+
+    dev = resolve_device(args.device)
+    conf = load_config(args.config)
+    ds = _train_dataset(args.data, conf)
+    if ds.audio is None or ds.codes is None:
+        raise SystemExit(f"{args.data}: end2end training needs audio.npy "
+                         "and codes.npy in the dataset")
+    trainer = End2EndTrainer(conf.end2end, device=dev)
+    epochs = args.epochs or conf.end2end.epochs
+    hist = ScalarHistory(os.path.join(args.out, "scalars.jsonl")) \
+        if args.out else None
+    try:
+        for epoch in range(epochs):
+            for wav, codes in device_prefetch(
+                    ds.batches(args.batch_size, seed=epoch,
+                               include=("audio", "codes")), dev):
+                loss = trainer.train_step(wav, codes)
+            loss_v = float(loss)
+            print(f"epoch {epoch}: loss {loss_v:.5f}")
+            if hist:
+                hist.log(epoch=epoch, loss=loss_v)
+    finally:
+        if hist:
+            hist.close()
+    if args.out:
+        save_checkpoint(args.out, trainer.state_dict(epochs - 1),
+                        name="latest")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="qpgesture_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -764,7 +899,8 @@ def main(argv=None):
                    help="Microsoft WavLM .pt (every preset but wavvq)")
     g.add_argument("--end2end-checkpoint", metavar="CKPT",
                    help="reference Generator_gru weights (end2end_*.bin) "
-                        "for --model end2end")
+                        "or a train-end2end output directory (its "
+                        "latest.pt) for --model end2end")
     g.add_argument("--max-frames", type=int, default=0,
                    help="clamp end2end generation length "
                         "(inference.py MAX_FRAMES)")
@@ -941,6 +1077,38 @@ def main(argv=None):
     ab.add_argument("--normalize", action="store_true",
                     help="also produce Audio_normalized/")
     ab.set_defaults(fn=cmd_assemble_beat)
+
+    tv = sub.add_parser("train-vqvae", help="train the gesture VQ-VAE")
+    tv.add_argument("--config", required=True)
+    tv.add_argument("--data", required=True,
+                    help="WindowedDataset directory")
+    tv.add_argument("--out", default="./output/train_codebook")
+    tv.add_argument("--epochs", type=int)
+    tv.add_argument("--resume", action="store_true",
+                    help="resume from <out>/latest.pt if present")
+    tv.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; raises without a GPU)")
+    tv.set_defaults(fn=cmd_train_vqvae)
+
+    tp = sub.add_parser("train-pae", help="train the periodic autoencoder")
+    tp.add_argument("--config", required=True)
+    tp.add_argument("--data", required=True)
+    tp.add_argument("--out")
+    tp.add_argument("--epochs", type=int)
+    tp.add_argument("--batch-size", type=int, default=32)
+    tp.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; raises without a GPU)")
+    tp.set_defaults(fn=cmd_train_pae)
+
+    te = sub.add_parser("train-end2end", help="train the GRU baseline")
+    te.add_argument("--config", required=True)
+    te.add_argument("--data", required=True)
+    te.add_argument("--out")
+    te.add_argument("--epochs", type=int)
+    te.add_argument("--batch-size", type=int, default=32)
+    te.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; raises without a GPU)")
+    te.set_defaults(fn=cmd_train_end2end)
 
     args = p.parse_args(argv)
     args.fn(args)

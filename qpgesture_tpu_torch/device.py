@@ -6,7 +6,8 @@ the tests do. Nothing falls back to the CPU on its own.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+from typing import Iterator, Optional, Union
 
 import numpy as np
 import torch
@@ -39,3 +40,20 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+@contextlib.contextmanager
+def cudnn_autotune() -> Iterator[None]:
+    """Let cuDNN time its candidate algorithms the first time it meets a
+    convolution shape and keep the fastest (``torch.backends.cudnn.
+    benchmark``), inside the block only. The trainers' steps run under it:
+    without it, cuDNN's heuristic takes FFT-tiled kernels for the VQ-VAE's
+    dilated-conv backward passes, about five times slower than the
+    implicit-GEMM kernels the timing finds and with ~15 times the memory
+    (batch 256 on an H100). TF32 stays off either way."""
+    prev = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark = prev

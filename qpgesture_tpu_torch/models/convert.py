@@ -22,7 +22,8 @@ Layout facts (the inverse of those in torch_convert):
 """
 from __future__ import annotations
 
-from typing import Dict
+import os
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -59,10 +60,19 @@ def _resnet(p: Dict, key: str, depth: int, out: Dict) -> None:
         _conv1d(p[f"block{d}"]["conv2"], f"{key}.model.{d}.model.3", out)
 
 
+# the codebook's EMA statistics, non-persistent buffers of the port's VQVAE
+# that load_state_dict takes when a state_dict carries them
+EMA_KEYS = ("bottleneck.level_blocks.0.k_sum",
+            "bottleneck.level_blocks.0.k_elem")
+
+
 def vqvae_state_dict_from_jax(params: Dict, cb,
                               cfg: VQVAEConfig) -> Dict[str, torch.Tensor]:
     """(flax params, codebook with a ``k`` field) -> the port's (and the
-    reference's) VQVAE state_dict, as CPU float32 tensors."""
+    reference's) VQVAE state_dict, as CPU float32 tensors. A codebook that
+    also has ``k_sum``/``k_elem`` (a JAX ``CodebookState``, as a train state
+    holds it) adds them under EMA_KEYS, so a JAX train state moves into the
+    port with its EMA statistics."""
     down_t = cfg.downs_t[0]
     depth = cfg.depth * cfg.hvqvae_multipliers[0]
     sd: Dict[str, torch.Tensor] = {}
@@ -85,6 +95,10 @@ def vqvae_state_dict_from_jax(params: Dict, cb,
     _conv1d(params["decoder"]["out"], "decoders.0.out", sd)
 
     sd["bottleneck.level_blocks.0.k"] = _t(cb.k)
+    for key, name in zip(EMA_KEYS, ("k_sum", "k_elem")):
+        value = getattr(cb, name, None)
+        if value is not None:
+            sd[key] = _t(value)
     return sd
 
 
@@ -333,18 +347,26 @@ def _torch_load_reference(path: str):
 
 def load_vqvae_checkpoint(path: str, cfg: VQVAEConfig,
                           device: DeviceLike = "cuda") -> VQVAE:
-    """Load a reference .bin/.pt checkpoint into a port VQVAE. Keys the port
-    does not hold (the reference's EMA statistics buffers) are ignored; a
-    key the port needs and the checkpoint lacks raises."""
-    ckpt = _torch_load_reference(path)
-    sd = strip_prefix(ckpt["model_dict"] if "model_dict" in ckpt else ckpt)
+    """A port VQVAE from a reference .bin/.pt checkpoint, or from a
+    ``train-vqvae`` output directory, whose ``best.pt`` it reads (as the JAX
+    package reads ``best``), EMA statistics included. Keys the port does
+    not hold are ignored; a key the port needs and the checkpoint lacks
+    raises."""
+    if os.path.isdir(path):
+        from ..train.checkpoints import restore_checkpoint
+        sd = restore_checkpoint(path, "best")["model_dict"]
+    else:
+        ckpt = _torch_load_reference(path)
+        sd = strip_prefix(ckpt["model_dict"] if "model_dict" in ckpt
+                          else ckpt)
     model = VQVAE(cfg, device=device)
-    wanted = model.state_dict().keys()
+    wanted = list(model.state_dict().keys())
     missing = [k for k in wanted if k not in sd]
     if missing:
         raise KeyError(f"checkpoint {path} lacks {len(missing)} VQ-VAE "
                        f"tensors, e.g. {missing[:3]}")
-    model.load_state_dict({k: sd[k] for k in wanted})
+    model.load_state_dict({k: sd[k] for k in wanted + list(EMA_KEYS)
+                           if k in sd})
     return model
 
 
@@ -359,16 +381,22 @@ def load_pae_checkpoint(path: str, cfg: PAEConfig,
     return model
 
 
-def _load_reference_state_dict(path: str, key: str, what: str) -> Dict:
+def _load_reference_state_dict(path: str, key: str, what: str,
+                               trained: Optional[str] = None) -> Dict:
     """The state_dict of a reference torch checkpoint file: the ``key``
     entry of the pickled dict, or a bare state_dict, without the
-    DataParallel prefix. A directory (an orbax checkpoint of the JAX
-    package's trainer) raises: training is not ported yet."""
-    import os
+    DataParallel prefix. A directory is a trainer's output: the port's own
+    checkpoint ``<path>/<trained>.pt`` when ``trained`` names one (an orbax
+    directory of the JAX package's trainers raises there, naming what it
+    holds); otherwise that trainer is not ported yet and it raises."""
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{what} checkpoints are not ported yet: {path} is a directory "
-            "(an orbax checkpoint); pass a reference torch checkpoint file")
+        if trained is None:
+            raise NotImplementedError(
+                f"{what} checkpoints are not ported yet: {path} is a "
+                "directory (an orbax checkpoint); pass a reference torch "
+                "checkpoint file")
+        from ..train.checkpoints import restore_checkpoint
+        return restore_checkpoint(path, trained)[key]
     ckpt = _torch_load_reference(path)
     return strip_prefix(ckpt.get(key, ckpt))
 
@@ -390,9 +418,12 @@ def load_resync_checkpoint(path: str, device: DeviceLike = "cuda"
 def load_generator_gru_checkpoint(path: str, device: DeviceLike = "cuda"
                                   ) -> GeneratorGRU:
     """A reference Generator_gru checkpoint ({'model_dict': sd},
-    end2end.py:119-128, or a bare sd) as a port GeneratorGRU in eval mode;
-    its hidden and output widths are read off the weights."""
-    sd = _load_reference_state_dict(path, "model_dict", "train-end2end")
+    end2end.py:119-128, or a bare sd), or a ``train-end2end`` output
+    directory, whose ``latest.pt`` it reads (as the JAX package reads
+    ``latest``), as a port GeneratorGRU in eval mode; its hidden and output
+    widths are read off the weights."""
+    sd = _load_reference_state_dict(path, "model_dict", "train-end2end",
+                                    trained="latest")
     model = GeneratorGRU(hidden=sd["project.weight_hh_l0"].shape[1],
                          output=sd["out.weight"].shape[0], device=device)
     model.load_state_dict(sd)

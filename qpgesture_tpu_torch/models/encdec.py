@@ -9,6 +9,9 @@ Module and parameter names are the reference's, so a reference
 ``codebook_checkpoint_best.bin`` loads with ``load_state_dict``
 (models/convert.py). Internally the convs run NCT, PyTorch's layout; the
 public ``Encoder``/``Decoder`` take and return NTC, the JAX package's layout.
+``VQVAEConfig.checkpoint_res`` recomputes each residual block in the
+backward pass instead of storing its activations (the reference's
+checkpoint_res, resnet.py:63-75; ``nn.remat`` in the JAX package).
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.config import VQVAEConfig
 
@@ -25,15 +29,21 @@ class ResConv1DBlock(nn.Module):
     (resnet.py:27-46). The convs sit at model.1 and model.3."""
 
     def __init__(self, n_in: int, n_state: int, dilation: int = 1,
-                 res_scale: float = 1.0):
+                 res_scale: float = 1.0, checkpoint_res: bool = False):
         super().__init__()
         self.model = nn.Sequential(
             nn.ReLU(), nn.Conv1d(n_in, n_state, 3, 1, dilation, dilation),
             nn.ReLU(), nn.Conv1d(n_state, n_in, 1, 1, 0))
         self.res_scale = res_scale
+        self.checkpoint_res = checkpoint_res
+
+    def _block(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.res_scale * self.model(x)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.res_scale * self.model(x)
+        if self.checkpoint_res and torch.is_grad_enabled():
+            return checkpoint(self._block, x, use_reentrant=False)
+        return self._block(x)
 
 
 class Resnet1D(nn.Module):
@@ -43,7 +53,8 @@ class Resnet1D(nn.Module):
     def __init__(self, n_in: int, n_depth: int, m_conv: float = 1.0,
                  dilation_growth_rate: int = 1,
                  dilation_cycle: Optional[int] = None,
-                 reverse_dilation: bool = False, res_scale: bool = False):
+                 reverse_dilation: bool = False, res_scale: bool = False,
+                 checkpoint_res: bool = False):
         super().__init__()
 
         def get_depth(depth):
@@ -52,7 +63,8 @@ class Resnet1D(nn.Module):
         scale = 1.0 if not res_scale else 1.0 / (n_depth ** 0.5)
         blocks = [ResConv1DBlock(n_in, int(m_conv * n_in),
                                  dilation=dilation_growth_rate
-                                 ** get_depth(depth), res_scale=scale)
+                                 ** get_depth(depth), res_scale=scale,
+                                 checkpoint_res=checkpoint_res)
                   for depth in range(n_depth)]
         if reverse_dilation:
             blocks = blocks[::-1]
@@ -66,7 +78,8 @@ class EncoderConvBlock(nn.Module):
     def __init__(self, input_emb_width: int, output_emb_width: int,
                  down_t: int, stride_t: int, width: int, depth: int,
                  m_conv: float, dilation_growth_rate: int = 1,
-                 dilation_cycle: Optional[int] = None):
+                 dilation_cycle: Optional[int] = None,
+                 checkpoint_res: bool = False):
         super().__init__()
         filter_t, pad_t = stride_t * 2, stride_t // 2
         blocks = []
@@ -75,7 +88,7 @@ class EncoderConvBlock(nn.Module):
                 nn.Conv1d(input_emb_width if i == 0 else width, width,
                           filter_t, stride_t, pad_t),
                 Resnet1D(width, depth, m_conv, dilation_growth_rate,
-                         dilation_cycle)))
+                         dilation_cycle, checkpoint_res=checkpoint_res)))
         blocks.append(nn.Conv1d(width, output_emb_width, 3, 1, 1))
         self.model = nn.Sequential(*blocks)
 
@@ -90,7 +103,8 @@ class DecoderConvBock(nn.Module):
                  down_t: int, stride_t: int, width: int, depth: int,
                  m_conv: float, dilation_growth_rate: int = 1,
                  dilation_cycle: Optional[int] = None,
-                 reverse_decoder_dilation: bool = False):
+                 reverse_decoder_dilation: bool = False,
+                 checkpoint_res: bool = False):
         super().__init__()
         filter_t, pad_t = stride_t * 2, stride_t // 2
         blocks = [nn.Conv1d(output_emb_width, width, 3, 1, 1)]
@@ -99,7 +113,8 @@ class DecoderConvBock(nn.Module):
             blocks.append(nn.Sequential(
                 Resnet1D(width, depth, m_conv, dilation_growth_rate,
                          dilation_cycle,
-                         reverse_dilation=reverse_decoder_dilation),
+                         reverse_dilation=reverse_decoder_dilation,
+                         checkpoint_res=checkpoint_res),
                 nn.ConvTranspose1d(width, out_ch, filter_t, stride_t,
                                    pad_t)))
         self.model = nn.Sequential(*blocks)
@@ -131,7 +146,8 @@ class Encoder(nn.Module):
             width=cfg.width * mult, depth=cfg.depth * mult,
             m_conv=cfg.m_conv,
             dilation_growth_rate=cfg.dilation_growth_rate,
-            dilation_cycle=cfg.dilation_cycle)])
+            dilation_cycle=cfg.dilation_cycle,
+            checkpoint_res=cfg.checkpoint_res)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.level_blocks[0](x.transpose(1, 2)).transpose(1, 2)
@@ -151,7 +167,8 @@ class Decoder(nn.Module):
             m_conv=cfg.m_conv,
             dilation_growth_rate=cfg.dilation_growth_rate,
             dilation_cycle=cfg.dilation_cycle,
-            reverse_decoder_dilation=cfg.vqvae_reverse_decoder_dilation)])
+            reverse_decoder_dilation=cfg.vqvae_reverse_decoder_dilation,
+            checkpoint_res=cfg.checkpoint_res)])
         self.out = nn.Conv1d(cfg.emb_width, cfg.input_dim, 3, 1, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

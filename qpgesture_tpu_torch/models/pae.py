@@ -14,7 +14,9 @@ PAE.py:477-508): one stride-1 window per motion frame, batched, with the
 velocity array uploaded once and the windows gathered on the device. It
 stops after the phase heads; the decoder half does not feed the phases.
 The convolutions are true float32 (TF32 off): the phases feed the matching
-engine's phase-continuity ranks.
+engine's phase-continuity ranks. The BatchNorms are ``models/batchnorm``'s,
+whose training step updates the running statistics as the JAX package's
+flax BatchNorm does (``train/train_pae.py`` trains the model).
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from torch import nn
 
 from ..core.config import PAEConfig
 from ..device import DeviceLike, resolve_device
+from .batchnorm import BatchNorm1d
 
 
 class PAE(nn.Module):
@@ -36,13 +39,13 @@ class PAE(nn.Module):
         inter = cfg.input_channels // cfg.channels_per_joint
         pc = cfg.phase_channels
         self.conv1 = nn.Conv1d(cfg.input_channels, inter, t, 1, int(t / 2))
-        self.bn_conv1 = nn.BatchNorm1d(inter)
+        self.bn_conv1 = BatchNorm1d(inter)
         self.conv2 = nn.Conv1d(inter, pc, t, 1, int((t - 1) / 2))
-        self.bn_conv2 = nn.BatchNorm1d(pc)
+        self.bn_conv2 = BatchNorm1d(pc)
         self.fc = nn.ModuleList([nn.Linear(t, 2) for _ in range(pc)])
-        self.bn = nn.ModuleList([nn.BatchNorm1d(2) for _ in range(pc)])
+        self.bn = nn.ModuleList([BatchNorm1d(2) for _ in range(pc)])
         self.deconv1 = nn.Conv1d(pc, inter, t, 1, int((t - 1) / 2))
-        self.bn_deconv1 = nn.BatchNorm1d(inter)
+        self.bn_deconv1 = BatchNorm1d(inter)
         self.deconv2 = nn.Conv1d(inter, cfg.input_channels, t, 1, int(t / 2))
         # rfftfreq(T)[1:] * (T * time_scale) / window and the signal's time
         # axis (PAE.py:62-66), float64 on the host then float32

@@ -422,3 +422,137 @@ def test_generator_gru_codes_on_card_match_cpu(cuda):
         want, got = cpu(wins), card(wins.to(cuda)).cpu()
     assert float((got - want).abs().max()) <= 1e-4
     assert torch.equal(card.sample(wins.to(cuda)).cpu(), cpu.sample(wins))
+
+
+# card against CPU gradients, per tensor ||g_card - g_cpu|| / ||g_cpu||:
+# float32 on both devices with other summation orders, where an L1 loss
+# term takes the other sign where output and target agree to rounding and
+# the PAE's phase heads end in atan2(v1, v0), whose gradient grows as
+# 1/|v|^2 near the origin (both reach 1e-3 to 2e-3 on an H100 in some
+# runs); the losses and statistics hold the forward pass tightly. The PAE's
+# BatchNorms average 240-tap conv outputs (32 400 products each).
+GRAD_NORM_RTOL = 1e-2
+PAE_STATS_RTOL = 1e-4
+
+
+def _grad_err(card_model, cpu_model, zero_grad=()):
+    """Worst per-tensor gradient error; tensors in zero_grad (gradient 0
+    analytically: rounding noise on both devices) as their largest
+    difference relative to the model's largest |g|."""
+    cpu_params = dict(cpu_model.named_parameters())
+    top = max(float(p.grad.abs().max()) for p in cpu_params.values())
+    worst = 0.0
+    for name, p in card_model.named_parameters():
+        want = cpu_params[name].grad
+        diff = p.grad.cpu() - want
+        worst = max(worst, float(diff.abs().max()) / top if name in zero_grad
+                    else float(diff.norm() / want.norm()))
+    return worst
+
+
+def _vqvae_trainers(cuda):
+    from qpgesture_tpu_torch.core.config import TrainConfig, VQVAEConfig
+    from qpgesture_tpu_torch.train.train_vqvae import VQVAETrainer
+    cfg = VQVAEConfig(width=128, emb_width=128, l_bins=64, depth=2)
+    tcfg = TrainConfig(batch_size=8)
+    batch = torch.from_numpy((0.5 * np.random.RandomState(18).randn(
+        8, 240, 135)).astype(np.float32))
+    cpu = VQVAETrainer(cfg, tcfg, device="cpu", seed=18)
+    cpu.init_codebook(batch)
+    card = VQVAETrainer(cfg, tcfg, device=cuda, seed=18)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card, batch
+
+
+def test_vqvae_train_step_on_card_matches_cpu(cuda):
+    """One step from the same state and batch: loss 1e-5 relative, gradients
+    GRAD_NORM_RTOL, codes equal, the EMA statistics and the codebook rows
+    that stay in use 1e-5 (dead codes restart from each device's own
+    draws)."""
+    cpu, card, batch = _vqvae_trainers(cuda)
+    codes_cpu = cpu.model.encode(batch)
+    codes_card = card.model.encode(batch.to(cuda)).cpu()
+    assert torch.equal(codes_card, codes_cpu)
+    loss_cpu, _ = cpu.train_step(batch)
+    loss_card, metrics = card.train_step(batch.to(cuda))
+    assert abs(float(loss_card) - float(loss_cpu)) <= 1e-5 * float(loss_cpu)
+    assert _grad_err(card.model, cpu.model) <= GRAD_NORM_RTOL
+    a, b = card.model.codebook_block, cpu.model.codebook_block
+    for name in ("k_sum", "k_elem"):
+        assert float((getattr(a, name).cpu() - getattr(b, name)).abs().max()
+                     ) <= 1e-5
+    used = b.k_elem >= 1.0
+    assert torch.equal(a.k_elem.cpu() >= 1.0, used)
+    assert float((a.k.cpu()[used] - b.k[used]).abs().max()) <= 1e-5
+    assert float(metrics["usage"]) == float(used.sum())
+
+
+def test_vqvae_train_step_makes_no_host_sync(cuda, tmp_path):
+    """A step on device-resident batches reads nothing back: it runs under
+    torch's sync debug mode "error", also after a resume from a checkpoint
+    mapped onto the card (Adam's step counts go back to the host)."""
+    from qpgesture_tpu_torch.train.checkpoints import (restore_checkpoint,
+                                                        save_checkpoint)
+    _, card, batch = _vqvae_trainers(cuda)
+    x = batch.to(cuda)
+    card.train_step(x)                       # first step: optimizer state
+    save_checkpoint(str(tmp_path), card.state_dict(1))
+    card.load_state_dict(restore_checkpoint(str(tmp_path),
+                                            map_location=cuda))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, metrics = card.train_step(x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(float(loss)) and card.step == 2
+
+
+def test_pae_train_step_on_card_matches_cpu(cuda):
+    """One AdamW step of the full-width PAE at batch 8: loss 1e-5 relative,
+    gradients GRAD_NORM_RTOL (biases feeding a training-mode BatchNorm,
+    whose gradient is 0, to that of the model's largest |g|), BatchNorm
+    statistics PAE_STATS_RTOL of each tensor's largest magnitude."""
+    from qpgesture_tpu_torch.core.config import PAEConfig
+    from qpgesture_tpu_torch.train.train_pae import PAETrainer
+    cpu = PAETrainer(PAEConfig(), device="cpu", seed=19)
+    card = PAETrainer(PAEConfig(), device=cuda, seed=19)
+    x = torch.from_numpy(np.sin(np.linspace(0, 30, 8 * 240 * 135)).reshape(
+        8, 240, 135).astype(np.float32))
+    loss_cpu = cpu.train_step(x)
+    loss_card = card.train_step(x.to(cuda))
+    assert abs(float(loss_card) - float(loss_cpu)) <= 1e-5 * float(loss_cpu)
+    fed = {"conv1.bias", "conv2.bias", "deconv1.bias"} | {
+        f"fc.{i}.bias" for i in range(PAEConfig().phase_channels)}
+    assert _grad_err(card.model, cpu.model, fed) <= GRAD_NORM_RTOL
+    cpu_bufs = dict(cpu.model.named_buffers())
+    for name, buf in card.model.named_buffers():
+        if "running" in name:
+            want = cpu_bufs[name]
+            assert float((buf.cpu() - want).abs().max()) <= \
+                PAE_STATS_RTOL * float(want.abs().max()), name
+
+
+def test_end2end_train_step_on_card_matches_cpu(cuda):
+    """One Adam step of the full-width GeneratorGRU at dropout 0 (the two
+    devices' generators draw different masks): loss 1e-5 relative, gradients
+    GRAD_NORM_RTOL (the BatchNorm-fed conv biases to GRAD_NORM_RTOL of the
+    model's largest |g|), BatchNorm statistics 1e-5."""
+    from qpgesture_tpu_torch.core.config import End2EndConfig
+    from qpgesture_tpu_torch.train.train_end2end import End2EndTrainer
+    cpu = End2EndTrainer(End2EndConfig(), device="cpu", seed=20)
+    cpu.model.dropout = 0.0
+    card = End2EndTrainer(End2EndConfig(), device=cuda, seed=20)
+    card.model.dropout = 0.0
+    rng = np.random.RandomState(20)
+    wav = torch.from_numpy((0.2 * rng.randn(8, 64000)).astype(np.float32))
+    codes = torch.from_numpy(rng.randint(0, 512, (8, 30)))
+    loss_cpu = cpu.train_step(wav, codes)
+    loss_card = card.train_step(wav.to(cuda), codes.to(cuda))
+    assert abs(float(loss_card) - float(loss_cpu)) <= 1e-5 * float(loss_cpu)
+    fed = {f"WavEncoder.feat_extractor.{k}.bias" for k in (0, 3, 6, 9)}
+    assert _grad_err(card.model, cpu.model, fed) <= GRAD_NORM_RTOL
+    cpu_bufs = dict(cpu.model.named_buffers())
+    for name, buf in card.model.named_buffers():
+        if "running" in name:
+            assert float((buf.cpu() - cpu_bufs[name]).abs().max()) <= 1e-5

@@ -120,9 +120,11 @@ def test_state_dict_round_trip_and_checkpoint_layouts(tmp_path):
         assert not loaded.training
         assert (loaded.hidden, loaded.out.out_features) == (16, 64)
         assert torch.equal(loaded.sample(wins), want), name
+    # a directory is a train-end2end output: without the port's latest.pt
+    # (an orbax checkpoint of the JAX trainer) it raises, naming what it holds
     orbax = tmp_path / "orbax_dir"
-    orbax.mkdir()
-    with pytest.raises(NotImplementedError, match="train-end2end"):
+    (orbax / "latest").mkdir(parents=True)
+    with pytest.raises(FileNotFoundError, match=r"latest\.pt.*\['latest'\]"):
         load_generator_gru_checkpoint(str(orbax), device="cpu")
 
 

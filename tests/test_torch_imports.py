@@ -32,15 +32,18 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
               "pipelines.beat_assembly", "ops.mfcc", "train.data",
               "utils.native", "serve", "match.oracle",
               "pipelines.release", "models.resync", "models.gru_baseline",
-              "ops.precision"):
+              "ops.precision", "models.batchnorm", "models.bottleneck",
+              "train.checkpoints", "train.train_vqvae", "train.train_pae",
+              "train.train_end2end", "utils.metrics_log"):
         assert f"qpgesture_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k in ('jax', 'flax',"
-        " 'jaxlib', 'qpgesture_tpu') or k.startswith(('jax.', 'flax.',"
-        " 'jaxlib.', 'qpgesture_tpu.')))\n"
+        " 'jaxlib', 'optax', 'orbax', 'qpgesture_tpu') or k.startswith(("
+        "'jax.', 'flax.', 'jaxlib.', 'optax.', 'orbax.',"
+        " 'qpgesture_tpu.')))\n"
         "print('BAD', bad)\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
@@ -139,6 +142,29 @@ def test_entry_points_default_to_cuda(tmp_path):
         main(["resync-apply", "--knn", missing, "--test-data", missing,
               "--train-database", missing, "--checkpoint", missing,
               "--out", missing])
+
+    # the trainers and their CLIs resolve the device before they read a file
+    from qpgesture_tpu_torch.core.config import End2EndConfig, TrainConfig
+    from qpgesture_tpu_torch.train.train_end2end import End2EndTrainer
+    from qpgesture_tpu_torch.train.train_pae import PAETrainer
+    from qpgesture_tpu_torch.train.train_vqvae import VQVAETrainer
+    from qpgesture_tpu_torch.train.data import DeviceClipStore
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        VQVAETrainer(VQVAEConfig(width=8, emb_width=8, l_bins=8, depth=1),
+                     TrainConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PAETrainer(pae_cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        End2EndTrainer(End2EndConfig(hidden_size=8, output_size=16))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeviceClipStore([{"poses": np.zeros((40, 3), np.float32)}], 8, 4)
+    for cmd in ("train-vqvae", "train-pae", "train-end2end"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main([cmd, "--config", missing, "--data", missing])
+    # one GPU: a data-parallel mesh asks for what is not ported
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        VQVAETrainer(VQVAEConfig(width=8, emb_width=8, l_bins=8, depth=1),
+                     TrainConfig(mesh_shape=(2,)), device="cpu")
 
     # generate: every input it reads before the first device is resolved
     from test_torch_rawwav import _write_generate_inputs

@@ -12,7 +12,8 @@ from qpgesture_tpu.core.config import VQVAEConfig
 from qpgesture_tpu.models.torch_convert import convert_vqvae
 from qpgesture_tpu.models.vqvae import VQVAE as JaxVQVAE
 from qpgesture_tpu_torch.core.config import VQVAEConfig as PortVQVAEConfig
-from qpgesture_tpu_torch.models.convert import (load_vqvae_checkpoint,
+from qpgesture_tpu_torch.models.convert import (EMA_KEYS,
+                                                load_vqvae_checkpoint,
                                                 vqvae_state_dict_from_jax)
 from qpgesture_tpu_torch.models.vqvae import VQVAE
 
@@ -74,7 +75,9 @@ def test_state_dict_round_trip_is_exact(kw):
     sd = model.state_dict()
     params, cb = convert_vqvae(sd, VQVAEConfig(**kw))
     back = vqvae_state_dict_from_jax(params, cb, PortVQVAEConfig(**kw))
-    assert list(back) == list(sd)
+    # the codebook's EMA statistics (k_sum = k, k_elem = 1 from a reference
+    # file) come along after the reference's keys
+    assert list(back) == list(sd) + list(EMA_KEYS)
     for k in sd:
         assert torch.equal(back[k], sd[k]), k
     model.load_state_dict(back)
