@@ -67,7 +67,19 @@ counts set to 0 just before it and read just after:
                debug mode "error", each step's time, windows/s, idle share
                and peak memory; phase 15's train split rebuilt with the
                trained VQ-VAE's codes and the trained PAE's phases, served
-               (wavvq, K1) against the CPU port.
+               (wavvq, K1) against the CPU port;
+  phase 18     resync training and evaluation: raw-pose GestureKNN over a
+               K=1024 database (search_motion_batch of 8 lanes against
+               solo calls and the CPU port, warmup --rawpose-batch);
+               ResyncNet's training pairs from phase 15's train split by
+               fake_training_pairs; train-resync at full width (ResyncNet
+               and the critic, batch 100), one iteration card against CPU,
+               one under sync debug "error", D-only and D + G iteration
+               times against the counted operations; generate --preset
+               wavvq --resync and resync-apply from the train-resync
+               directory (K1) against the CPU port; train-fgd and evaluate
+               (the trained extractor and phase 17's VQ-VAE) card against
+               CPU; the batched MFCC on phase 15's recordings.
 
 It prints one line per check. The last three lines are the card's name and
 power limit, one JSON object with every kernel's launches, error and
@@ -161,6 +173,32 @@ TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_RTOL = 1e-2
 TRAIN_STATS_RTOL = 1e-5
 PAE_STATS_RTOL = 1e-4
+# phase 18: the raw-pose database (K sequences x 240 frames, tests/
+# fixtures.py's shapes) and its lanes, RAWPOSE_CPU_LANES of them held
+# against the CPU port; ResyncNet's training pairs (RESYNC_REPEATS
+# stochastic-k draws per phase 15 train window), ResyncConfig's batch, the
+# CLI's iterations, the batch of the card-vs-CPU check, the timed
+# iterations (a multiple of 4); the FGD extractor's epochs
+RAWPOSE_K, RAWPOSE_C, RAWPOSE_CPU_LANES = J, 8, 2
+RESYNC_REPEATS, RESYNC_BATCH, RESYNC_ITERS = 4, 100, 50
+RESYNC_CHECK_BATCH, RESYNC_TIMED = 4, 8
+FGD_EPOCHS = 3
+# one resync iteration card vs CPU, gradients per tensor: a LeakyReLU
+# input within rounding of 0 takes the other slope on one side, and the
+# penalty differentiates the slopes again; at batch 4 a single such element
+# moves a whole layer's gradient by ~1e-3 of its norm. On an H100 the two
+# differed by up to 8.8e-3 (the check also logs each side against a float64
+# CPU reference); an error in the step gives O(1)
+RESYNC_GRAD_RTOL = 3e-2
+# evaluate's feature-space FGDs card vs CPU: embeddings and codes from
+# float32 encoders in other summation orders, relative (beyond the JSON's
+# rounding to 4 decimals)
+FGD_RTOL = 1e-3
+# the batched MFCC: cuFFT against pocketfft, float32 products; log-mel
+# values reach ~15. The host oracle is float64 (the JAX package's test of
+# its device MFCC holds 2e-3)
+MFCC_ATOL = 2e-3
+MFCC_ORACLE_ATOL = 2e-3
 # device_ms's spin ahead of the timed calls: ~50 ms at the H100's 1980 MHz
 SLEEP_CYCLES = 100_000_000
 
@@ -2814,6 +2852,583 @@ def phase17_serve(dev, built, vq_out: str, pae_card):
     return n1
 
 
+# -- phase 18: resync training, evaluation, raw-pose search ---------------
+
+def phase18_rawpose(dev, rng, built, tmp: str):
+    """Raw-pose GestureKNN: a staged database of RAWPOSE_K seeded synthetic
+    sequences x 240 frames (tests/fixtures.py's shapes: 14 MFCC channels,
+    13 searched; body 135), search_motion_batch over RAWPOSE_C test
+    sequences against solo search_motion on the card and the CPU port
+    (RAWPOSE_CPU_LANES of the lanes), times, idle share, resident bytes;
+    then warmup --rawpose-batch through the CLI on phase 15's train
+    database, whose files (p18_*.npz in tmp) phase18_serve reads too."""
+    import contextlib
+    import io
+
+    import numpy as np
+    from qpgesture_tpu_torch.cli import main as cli
+    from qpgesture_tpu_torch.core.schemas import save_codes, save_wavvq
+    from qpgesture_tpu_torch.match.gesture_knn import (
+        GestureKNNEngine, normalize_gesture_knn, stage_gesture_knn)
+    from qpgesture_tpu_torch.models.vqvae import codebook_signature
+    from qpgesture_tpu_torch.core.schemas import CodebookSignature
+    from qpgesture_tpu_torch.ops import levenshtein_cuda as K1
+
+    t0 = time.perf_counter()
+    mfcc = rng.randn(RAWPOSE_K, 240, 14).astype(np.float32)
+    body = rng.randn(RAWPOSE_K, 240, 135).astype(np.float32)
+    db, test = normalize_gesture_knn(
+        stage_gesture_knn(mfcc, body),
+        rng.randn(RAWPOSE_C, 240, 14).astype(np.float32))
+    stage_s = time.perf_counter() - t0
+    seqs = rng.randint(0, RAWPOSE_K, RAWPOSE_C)
+    frms = rng.randint(0, 240 - 8, RAWPOSE_C)
+    ks = rng.randint(0, 3, RAWPOSE_C)
+    engine = GestureKNNEngine(db, device=dev)
+
+    def batch():
+        return engine.search_motion_batch(test, seqs, frms, ks)
+
+    got = batch()
+    n_steps = int(np.ceil((240 - 1) / db.step_sz))
+    batch_ms = median_ms(batch, 5, warmup=1)
+    lanes = sorted({0, RAWPOSE_C - 1})[:RAWPOSE_CPU_LANES]
+    t0 = time.perf_counter()
+    want = GestureKNNEngine(db, device="cpu").search_motion_batch(
+        test[lanes], seqs[lanes], frms[lanes], ks[lanes])
+    cpu_s = time.perf_counter() - t0
+    solo = [engine.search_motion(test[c], int(seqs[c]), int(frms[c]),
+                                 int(ks[c])) for c in range(RAWPOSE_C)]
+    same_solo = all(np.array_equal(got[c], solo[c])
+                    for c in range(RAWPOSE_C))
+    same_cpu = np.array_equal(got[lanes], want)
+    log(f"phase 18 raw-pose GestureKNN: K={RAWPOSE_K} x 240 frames "
+        f"(features {db.feat.shape[-1]} = {db.n_aud} audio + "
+        f"{db.feat.shape[-1] - db.n_aud} pose), C={RAWPOSE_C} lanes of 240 "
+        f"frames ({n_steps} steps): batch_ms={batch_ms:.3f} "
+        f"({batch_ms / n_steps:.4f} ms a step; host clock, host arrays "
+        f"out); resident {engine.resident_bytes / 2 ** 20:.1f} MiB; lanes "
+        f"== solo search_motion on the card {same_solo}; lanes {lanes} == "
+        f"the CPU port {same_cpu} (CPU {cpu_s:.1f} s); staging "
+        f"{stage_s:.2f} s")
+    if got.shape != (RAWPOSE_C, 135, 240) or not same_solo or not same_cpu:
+        raise SystemExit("raw-pose search: lanes differ from solo calls or "
+                         "from the CPU port")
+    log_profile("phase 18 search_motion_batch", batch)
+
+    # -- warmup --rawpose-batch through the CLI on phase 15's database -----
+    p = lambda name: os.path.join(tmp, name)
+    train = built["bundles"]["train"]
+    train.save(p("p18_db.npz"))
+    save_codes(p("p18_codes.npz"), built["codes"]["train"])
+    code, poses, sig = codebook_signature(built["vq_gpu"], built["mean"],
+                                          built["std"])
+    CodebookSignature(code=code, poses=poses, signature=sig).save(
+        p("p18_sig.npz"))
+    save_wavvq(p("p18_wavvq.npz"), built["wavvq"]["train"])
+    buf = io.StringIO()
+    before = K1.launches
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        cli(["warmup", "--train-database", p("p18_db.npz"),
+             "--train-codebook", p("p18_codes.npz"),
+             "--codebook-signature", p("p18_sig.npz"),
+             "--train-wavvq", p("p18_wavvq.npz"), "--preset", "wavvq",
+             "--buckets", "1", "--rawpose-batch", str(RAWPOSE_C),
+             "--device", str(dev)])
+    n1 = K1.launches - before
+    lines = buf.getvalue().splitlines()
+    log(f"phase 18 warmup --rawpose-batch {RAWPOSE_C} (J={len(train.body)}"
+        f" database): {time.time() - t0:.1f} s; K1 launches {n1}; "
+        f"{[ln for ln in lines if ln.startswith('raw-pose')]}")
+    if not lines or not lines[-1].endswith(f"raw-pose batch {RAWPOSE_C}"):
+        raise SystemExit("warmup --rawpose-batch did not run")
+
+
+def phase18_resync_data(built, tmp: str):
+    """ResyncNet's training pairs from phase 15's train split, on the host
+    as in the JAX package: fake motion by the stochastic-k audio-only
+    search (fake_training_pairs) over the split's own raw-pose database,
+    RESYNC_REPEATS draws per window; knn = mfcc | fake motion, real =
+    mfcc | ground-truth body, z-normalized with the split's resync stats.
+    Writes the --data npz; returns its path and the fake motion (N, 135,
+    240)."""
+    import numpy as np
+    from qpgesture_tpu_torch.match.gesture_knn import (
+        fake_training_pairs, normalize_gesture_knn, stage_gesture_knn)
+    from qpgesture_tpu_torch.models.resync import resync_stats
+
+    train = built["bundles"]["train"]
+    t0 = time.perf_counter()
+    db, feats = normalize_gesture_knn(
+        stage_gesture_knn(train.mfcc, train.body), train.mfcc)
+    feats = np.tile(feats, (RESYNC_REPEATS, 1, 1))
+    fake = fake_training_pairs(db, feats, np.random.RandomState(SEED))
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    mfcc = np.tile(train.mfcc[:, :, :13], (RESYNC_REPEATS, 1, 1))
+    body = np.tile(train.body, (RESYNC_REPEATS, 1, 1))
+    mm, ms, gm, gs = resync_stats(train.mfcc[:, :, :13], train.body)
+    eps = np.float32(1e-8)
+    mfcc_n = (mfcc - mm) / (ms + eps)
+    knn = np.concatenate([mfcc_n, (fake.transpose(0, 2, 1) - gm) / (gs + eps)],
+                         -1).astype(np.float32)
+    real = np.concatenate([mfcc_n, (body - gm) / (gs + eps)], -1).astype(
+        np.float32)
+    path = os.path.join(tmp, "resync_pairs.npz")
+    np.savez(path, knn=knn, real=real)
+    log(f"phase 18 resync training data: fake_training_pairs over phase 15's"
+        f" J={len(train.body)} train windows x {RESYNC_REPEATS} draws -> "
+        f"knn/real {knn.shape}; host_ms={host_ms:.1f}")
+    if knn.shape[0] < RESYNC_BATCH or not np.isfinite(knn).all():
+        raise SystemExit("resync training data: too few or non-finite pairs")
+    return path, fake
+
+
+def resync_flops(trainer, knn, real, eps) -> tuple:
+    """(D step, G step) floating-point operations of the trainer's
+    convolutions and products, counted over one step of each (forward,
+    backward and the penalty's double backward) by a dispatch mode that
+    applies torch's own per-operator formulas (torch.utils.flop_counter's
+    registry; FlopCounterMode itself tracks modules with hooks that the
+    penalty's autograd.grad on a leaf input refuses). The counted steps
+    update the weights: the caller passes a trainer of its own."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.flop_counter import flop_registry
+
+    class Count(TorchDispatchMode):
+        flops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            formula = flop_registry.get(func._overloadpacket)
+            if formula is not None:
+                self.flops += formula(*args, **kwargs, out_val=out)
+            return out
+
+    counts = []
+    for step in (lambda: trainer.d_step(knn, real, eps),
+                 lambda: trainer.g_step(knn, real)):
+        with Count() as counter:
+            step()
+        counts.append(counter.flops)
+    return tuple(counts)
+
+
+def resync_float64_grads(trainer, x_knn, x_real, eps):
+    """The gradients of one critic step and one generator step computed in
+    float64 on the CPU from ``trainer``'s current weights (before its own
+    steps). Returns a function of the critic the generator step scores
+    against (the float32 trainer's updated one) giving (critic module,
+    generator module) copies whose ``.grad`` hold the float64 gradients."""
+    import copy as copy_
+
+    import torch
+    import torch.nn.functional as F
+    from qpgesture_tpu_torch.models.resync import gradient_penalty
+
+    cfg, n_mfcc = trainer.cfg, trainer.n_mfcc
+    gen = copy_.deepcopy(trainer.gen).double().train()
+    disc = copy_.deepcopy(trainer.disc).double()
+    knn = x_knn.double().transpose(1, 2)
+    real = x_real.double().transpose(1, 2)
+    with torch.no_grad():
+        fake = torch.cat((knn[:, :n_mfcc], gen(knn)), 1)
+    loss = disc(fake).mean() - disc(real).mean() + cfg.lambda_gp * \
+        gradient_penalty(disc, real, fake, eps.double())
+    loss.backward()
+
+    def generator_step(updated_disc):
+        critic = copy_.deepcopy(updated_disc).double()
+        motion = gen(knn)
+        loss = cfg.weight_gen * -critic(torch.cat(
+            (knn[:, :n_mfcc], motion), 1)).mean() + \
+            cfg.weight_recon * F.l1_loss(motion, knn[:, n_mfcc:])
+        gen.zero_grad()
+        loss.backward()
+        return disc, gen
+
+    return generator_step
+
+
+def time_resync(iters):
+    """({"D": ms, "D+G": ms} per iteration from CUDA events around
+    RESYNC_TIMED iterations of each kind, peak memory in GiB). ``iters``
+    runs the iterations it is given."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = {}
+    for name, its in (("D", [1, 2, 3, 4] * (RESYNC_TIMED // 4)),
+                      ("D+G", [0] * RESYNC_TIMED)):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        iters(its)
+        end.record()
+        end.synchronize()
+        times[name] = start.elapsed_time(end) / len(its)
+    return times, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def phase18_train_resync(dev, data: str, tmp: str):
+    """train-resync through the CLI at full width (ResyncConfig: batch 100,
+    lambda 100, gen_hop 5) for RESYNC_ITERS iterations; one critic and one
+    generator step card against CPU from the written latest.pt at batch
+    RESYNC_CHECK_BATCH with the same eps; an iteration under sync debug
+    "error"; D-only and D + G iteration times, TFLOP/s against the counted
+    operations, idle share, peak memory. Returns the output directory."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from qpgesture_tpu_torch.cli import main as cli
+    from qpgesture_tpu_torch.core.config import ResyncConfig
+    from qpgesture_tpu_torch.train.checkpoints import restore_checkpoint
+    from qpgesture_tpu_torch.train.train_resync import ResyncTrainer
+
+    out = os.path.join(tmp, "resync")
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        cli(["train-resync", "--data", data, "--iters", str(RESYNC_ITERS),
+             "--batch-size", str(RESYNC_BATCH), "--out", out,
+             "--device", str(dev)])
+    wall = time.time() - t0
+    lines = [ln for ln in buf.getvalue().splitlines()
+             if ln.startswith("iter")]
+    state = restore_checkpoint(out, "latest")
+    log(f"phase 18 train-resync: {RESYNC_ITERS} iterations at batch "
+        f"{RESYNC_BATCH} {wall:.1f} s (CLI wall); critic steps "
+        f"{state['step']}; {lines[0]} ... {lines[-1]}")
+    losses = [float(v) for ln in lines for v in ln.split()[3::2]]
+    if state["step"] != RESYNC_ITERS or not np.isfinite(losses).all():
+        raise SystemExit("train-resync: wrong step count or non-finite loss")
+
+    # -- one iteration, card against CPU, from latest.pt ---------------------
+    pairs = np.load(data)
+    knn, real = pairs["knn"], pairs["real"]
+    n, t, c = knn.shape
+    cfg = ResyncConfig(gen_hop=1)
+
+    def trainer(device):
+        tr = ResyncTrainer(cfg, n_mfcc=c - 135, n_joints=135, num_frames=t,
+                           device=device)
+        tr.load_state_dict(restore_checkpoint(out, "latest"))
+        return tr
+
+    cpu, card = trainer("cpu"), trainer(dev)
+    fed = lambda m: {nm for nm, _ in m.named_parameters()  # noqa: E731
+                     if nm.endswith((".0.bias", ".3.bias"))}
+    b = RESYNC_CHECK_BATCH
+    xk, xr = torch.from_numpy(knn[:b]), torch.from_numpy(real[:b])
+    eps = torch.rand((b, 1, 1), generator=torch.Generator().manual_seed(SEED))
+    ref = resync_float64_grads(cpu, xk, xr, eps)
+    want = {"d_loss": cpu.d_step(xk, xr, eps)}
+    got = {"d_loss": card.d_step(xk.to(dev), xr.to(dev), eps.to(dev))}
+    d_grad = grad_err(card.disc, cpu.disc, fed(cpu.disc))
+    # the generator step against the same critic: Adam (b1 = 0) moves each
+    # weight by about lr times its gradient's sign, so the weights whose
+    # gradient is rounding noise leave the two critics ~lr apart
+    card.disc.load_state_dict(cpu.disc.state_dict())
+    want["g_loss"] = cpu.g_step(xk, xr)
+    got["g_loss"] = card.g_step(xk.to(dev), xr.to(dev))
+    ref_g = ref(cpu.disc)
+    errs = {k: abs(float(got[k]) - float(want[k])) / max(
+        abs(float(want[k])), 1.0) for k in want}
+    g_grad = grad_err(card.gen, cpu.gen, fed(cpu.gen))
+    f64 = {name: [grad_err(m, r, fed(r))[0] for m in (card_m, cpu_m)]
+           for name, card_m, cpu_m, r in (
+               ("critic", card.disc, cpu.disc, ref_g[0]),
+               ("generator", card.gen, cpu.gen, ref_g[1]))}
+    stats = bn_stats_err(card.gen, cpu.gen)
+    log(f"phase 18 resync iteration card vs CPU port (batch {b}, from "
+        f"latest.pt, the same eps, the generator step against the CPU's "
+        f"updated critic): d_loss rel {errs['d_loss']:.3e}, g_loss "
+        f"rel {errs['g_loss']:.3e} (tol {TRAIN_LOSS_RTOL}); gradients critic "
+        f"{d_grad[0]:.3e}, generator {g_grad[0]:.3e} (tol "
+        f"{RESYNC_GRAD_RTOL}, per tensor; the norm-fed conv biases against "
+        f"the model's max); against the float64 CPU reference: critic card "
+        f"{f64['critic'][0]:.3e} / CPU float32 {f64['critic'][1]:.3e}, "
+        f"generator card {f64['generator'][0]:.3e} / CPU float32 "
+        f"{f64['generator'][1]:.3e}; BatchNorm statistics {stats:.3e} (tol "
+        f"{TRAIN_STATS_RTOL})")
+    if max(errs.values()) > TRAIN_LOSS_RTOL or \
+            max(d_grad[0], g_grad[0]) > RESYNC_GRAD_RTOL or \
+            stats > TRAIN_STATS_RTOL:
+        raise SystemExit("resync iteration: card differs from CPU")
+    del cpu
+
+    # -- times at the configuration's batch ---------------------------------
+    B = RESYNC_BATCH
+    kd = torch.from_numpy(knn[:B]).to(dev)
+    rd = torch.from_numpy(real[:B]).to(dev)
+    d_flops, g_flops = resync_flops(trainer(dev), kd, rd,
+                                    torch.rand((B, 1, 1), device=dev))
+    timed = trainer(dev)
+    timed.cfg = ResyncConfig()                      # gen_hop 5
+
+    def iters(its):
+        for it in its:
+            timed.train_iteration(kd, rd, it)
+
+    iters(range(6))
+    step_without_sync(lambda: timed.train_iteration(kd, rd, 5))
+    times, peak = time_resync(iters)
+    d_tf = d_flops / times["D"] / 1e9
+    dg_tf = (d_flops + g_flops) / times["D+G"] / 1e9
+    log(f"phase 18 resync iteration times (batch {B}, CUDA events over "
+        f"{RESYNC_TIMED}): D only {times['D']:.3f} ms, D + G "
+        f"{times['D+G']:.3f} ms; counted operations (torch's flop formulas) "
+        f"{d_flops / 1e12:.4f} TFLOP a D step, {g_flops / 1e12:.4f} a G "
+        f"step: {d_tf:.2f} / {dg_tf:.2f} TFLOP/s "
+        f"({100 * d_tf * 1e12 / F32_FLOPS:.0f} / "
+        f"{100 * dg_tf * 1e12 / F32_FLOPS:.0f} % of the f32 peak); peak "
+        f"max_memory_allocated {peak:.3f} GiB; one iteration under sync "
+        f"debug \"error\" ok")
+
+    def five():
+        iters(range(5))
+        torch.cuda.synchronize()
+
+    log_profile("phase 18 resync 5 iterations (one D + G)", five)
+    return out
+
+
+def phase18_serve(dev, built, tmp: str, resync_dir: str, fake):
+    """generate --preset wavvq --resync <train-resync dir> on phase 15's
+    database (K1) and resync-apply --checkpoint <dir>, each against the
+    CPU port: codes equal to the CPU port's engine over the card's staged
+    vq-wav2vec codes, the resync transform and resync-apply within 1e-3 x
+    the motion std, the CLI's BVH that motion. Returns the resynced
+    poses."""
+    import argparse
+
+    import numpy as np
+    import torch
+    import yaml
+    from qpgesture_tpu_torch.cli import _make_resync_transform, _match_codes
+    from qpgesture_tpu_torch.cli import main as cli
+    from qpgesture_tpu_torch.core.config import MATCH_PRESETS, load_config
+    from qpgesture_tpu_torch.core.schemas import CodebookSignature
+    from qpgesture_tpu_torch.match.database import (stage_database,
+                                                    stage_test_audio,
+                                                    stage_test_context)
+    from qpgesture_tpu_torch.match.engine import CodeKNNEngine
+    from qpgesture_tpu_torch.models.vq_wav2vec import \
+        load_vq_wav2vec_checkpoint
+    from qpgesture_tpu_torch.motion.bvh import parse_bvh
+    from qpgesture_tpu_torch.ops import levenshtein_cuda as K1
+    from qpgesture_tpu_torch.pipelines import database_builder as builder
+    from qpgesture_tpu_torch.pipelines.audio_prep import write_wav
+    from qpgesture_tpu_torch.render.decode import decode_codes
+
+    p = lambda name: os.path.join(tmp, name)
+    torch.save({"model": built["wavvq_cpu"].state_dict()}, p("p18_wavvq.pt"))
+    torch.save({"model_dict": built["vq_cpu"].state_dict()},
+               p("p18_vqvae.bin"))
+    with open(p("p18_config.yml"), "w") as f:
+        yaml.safe_dump({"data_mean": built["mean"].tolist(),
+                        "data_std": built["std"].tolist()}, f)
+    with open(p("p18_pipeline.json"), "w") as f:
+        f.write(built["pipeline"].to_json())
+    test_rec = next(r for r in built["recs"]
+                    if builder.split_of(r.name) == "test")
+    wav = test_rec.wav[:W * 4 * 16000].astype(np.float32)
+    write_wav(p("p18_speech.wav"), wav, 16000)
+    wav = load_wav(p("p18_speech.wav"))
+    files = ["--train-database", p("p18_db.npz"),
+             "--train-codebook", p("p18_codes.npz"),
+             "--codebook-signature", p("p18_sig.npz"),
+             "--train-wavvq", p("p18_wavvq.npz")]
+    before = K1.launches
+    t0 = time.time()
+    cli(["generate", "--wav", p("p18_speech.wav"), *files,
+         "--wavvq-checkpoint", p("p18_wavvq.pt"),
+         "--vqvae-checkpoint", p("p18_vqvae.bin"),
+         "--pipeline", p("p18_pipeline.json"), "--config",
+         p("p18_config.yml"), "--preset", "wavvq", "--resync", resync_dir,
+         "--out", p("p18_gen"), "--prefix", "r", "--device", str(dev)])
+    gen_s = time.time() - t0
+    bvh = parse_bvh(p(os.path.join("p18_gen", "r_generated.bvh")))
+
+    ns = argparse.Namespace(**{k[2:].replace("-", "_"): v for k, v in
+                               zip(files[::2], files[1::2])},
+                            train_wavlm=None, preset="wavvq",
+                            wavvq_checkpoint=p("p18_wavvq.pt"),
+                            device=str(dev))
+    codes, bundle = _match_codes(ns, wav)
+    n1 = K1.launches - before
+    cfg = MATCH_PRESETS["wavvq"]
+    sig = CodebookSignature.load(p("p18_sig.npz"))
+    cfg = dataclasses.replace(cfg, codebook_size=sig.signature.shape[0])
+    db = stage_database(cfg, bundle, built["codes"]["train"], sig,
+                        wavvq=built["wavvq"]["train"])
+    windows = builder.window_test_audio(wav)
+    enc = builder.extract_wavvq(load_vq_wav2vec_checkpoint(
+        p("p18_wavvq.pt"), device=dev), windows)
+    # no transcript: the empty-text embedding per window, as generate does
+    ctx = np.tile(builder.hashed_embed_fn()([""] * 30)[None],
+                  (windows.shape[0], 1, 1)).astype(np.float32)
+    want = CodeKNNEngine(cfg, db, device="cpu").predict(
+        stage_test_audio(cfg, db, wavvq=enc),
+        stage_test_context(db, ctx)).codes
+    # the stats as the CLI reads them (float64 from the YAML)
+    conf = load_config(p("p18_config.yml"))
+    poses = decode_codes(built["vq_gpu"], codes, np.asarray(conf.data_mean),
+                         np.asarray(conf.data_std))
+    resynced = _make_resync_transform(resync_dir, wav, bundle, dev)(poses)
+    cpu_resynced = _make_resync_transform(resync_dir, wav, bundle,
+                                          torch.device("cpu"))(poses)
+    scale = float(cpu_resynced.std())
+    err = float(np.abs(resynced - cpu_resynced).max())
+    from qpgesture_tpu_torch.render.decode import poses_to_bvh
+    bvh_err = float(np.abs(bvh.values - poses_to_bvh(
+        resynced, built["pipeline"]).values).max())
+    log(f"phase 18 generate --preset wavvq --resync <train-resync dir> "
+        f"({W * 4} s of the test recording, phase 15's J={len(bundle.body)}"
+        f" database): {gen_s:.1f} s; K1 launches {n1}; codes {codes.shape} "
+        f"== the CPU port's engine over the card's staged vq-wav2vec codes "
+        f"{np.array_equal(codes, want)}; resync transform card vs CPU port "
+        f"max_abs_err {err:.3e} (tol 1e-3 x motion std {scale:.3f}); the "
+        f"CLI's BVH vs that motion {bvh_err:.3e}")
+    if (dev.type == "cuda" and n1 < 1) or not np.array_equal(codes, want) \
+            or err > 1e-3 * scale or \
+            bvh_err > 1e-3 or not np.isfinite(resynced).all():
+        raise SystemExit("generate --resync from the train-resync directory "
+                         "differs from the CPU port")
+
+    # -- resync-apply --checkpoint <dir> -------------------------------------
+    N = fake.shape[0] // RESYNC_REPEATS
+    np.savez(p("p18_knn.npz"), knn_pred=fake[:N])
+    np.savez(p("p18_test.npz"), mfcc=built["bundles"]["train"].mfcc)
+    outs = {}
+    for d in (str(dev), "cpu"):
+        t0 = time.time()
+        cli(["resync-apply", "--knn", p("p18_knn.npz"), "--test-data",
+             p("p18_test.npz"), "--train-database", p("p18_db.npz"),
+             "--checkpoint", resync_dir, "--out", p(f"p18_stage2_{d}.npz"),
+             "--device", d])
+        outs[d] = (np.load(p(f"p18_stage2_{d}.npz"))["knn_pred"],
+                   time.time() - t0)
+    scale = float(outs["cpu"][0].std())
+    err = float(np.abs(outs[str(dev)][0] - outs["cpu"][0]).max())
+    log(f"phase 18 resync-apply --checkpoint <train-resync dir> (N={N} "
+        f"fake-motion windows): card vs CPU port max_abs_err {err:.3e} (tol "
+        f"1e-3 x motion std {scale:.3f}); CLI {outs[str(dev)][1]:.1f} s "
+        f"(card) / {outs['cpu'][1]:.1f} s (cpu)")
+    if outs[str(dev)][0].shape != fake[:N].shape or err > 1e-3 * scale:
+        raise SystemExit("resync-apply from the train-resync directory "
+                         "differs from the CPU port")
+    return resynced
+
+
+def phase18_evaluate(dev, built, tmp: str, vq_out: str, generated):
+    """train-fgd on phase 15's ground-truth windows (every split) at the
+    CLI's defaults; evaluate of the generated motion against the test
+    split's ground truth with the extractor and phase 17's trained VQ-VAE
+    on the card and on the CPU: hellinger and fgd_raw bit-equal, the two
+    feature-space FGDs within FGD_RTOL."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import yaml
+    from qpgesture_tpu_torch.cli import main as cli
+
+    p = lambda name: os.path.join(tmp, name)
+    gt_all = np.concatenate([b.body for b in built["bundles"].values()])
+    np.savez(p("p18_gt_all.npz"), body=gt_all)
+    np.savez(p("p18_gt_test.npz"), body=built["bundles"]["test"].body)
+    np.savez(p("p18_generated.npz"), poses=generated)
+    with open(p("p18_eval.yml"), "w") as f:
+        yaml.safe_dump({**TRAIN_SECTIONS, "data_mean": built["mean"].tolist(),
+                        "data_std": built["std"].tolist()}, f)
+
+    def run(argv):
+        buf = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            cli(argv)
+        return buf.getvalue().strip().splitlines(), time.time() - t0
+
+    lines, fgd_s = run(["train-fgd", "--data", p("p18_gt_all.npz"), "--out",
+                        p("p18_fgd.ckpt"), "--epochs", str(FGD_EPOCHS),
+                        "--device", str(dev)])
+    log(f"phase 18 train-fgd ({len(gt_all)} ground-truth windows of 240 x "
+        f"135, width 64, latent 32, batch 64, {FGD_EPOCHS} epochs): "
+        f"{fgd_s:.1f} s; {lines[-2]}")
+    argv = ["evaluate", "--generated", p("p18_generated.npz"), "--reference",
+            p("p18_gt_test.npz"), "--fgd-extractor", p("p18_fgd.ckpt"),
+            "--vqvae-checkpoint", vq_out, "--config", p("p18_eval.yml")]
+    res = {}
+    for d in (str(dev), "cpu"):
+        lines, secs = run(argv + ["--device", d])
+        res[d] = (json.loads(lines[-1]), secs)
+    got, want = res[str(dev)][0], res["cpu"][0]
+    # relative, past the JSON's rounding to 4 decimals
+    rel = {k: max(abs(got[k] - want[k]) - 1e-4, 0.0) / max(abs(want[k]),
+                                                           1e-6)
+           for k in ("fgd_feature", "fgd_vqvae_latent")}
+    log(f"phase 18 evaluate (card): {json.dumps(got)}; CPU port: "
+        f"{json.dumps(want)}; hellinger and fgd_raw bit-equal "
+        f"{got['hellinger'] == want['hellinger'] and got['fgd_raw'] == want['fgd_raw']}"
+        f"; fgd_feature rel {rel['fgd_feature']:.3e}, fgd_vqvae_latent rel "
+        f"{rel['fgd_vqvae_latent']:.3e} (tol {FGD_RTOL}); CLI "
+        f"{res[str(dev)][1]:.1f} s (card) / {res['cpu'][1]:.1f} s (cpu)")
+    if sorted(got) != sorted(want) or got["hellinger"] != want["hellinger"] \
+            or got["fgd_raw"] != want["fgd_raw"] or \
+            max(rel.values()) > FGD_RTOL or \
+            not all(np.isfinite(v) for v in got.values()):
+        raise SystemExit("evaluate on the card differs from the CPU port")
+    # the parts, timed alone on the same arrays
+    from qpgesture_tpu_torch.render.fgd_extractor import (fgd_encoder_fn,
+                                                          load_fgd_extractor)
+    from qpgesture_tpu_torch.render.metrics import fgd, hellinger_velocity
+    ref = built["bundles"]["test"].body
+    wg = generated[:(len(generated) // 240) * 240].reshape(-1, 240, 135)
+    model, mean, std = load_fgd_extractor(p("p18_fgd.ckpt"), device=dev)
+    enc = fgd_encoder_fn(model, mean, std)
+    parts = {}
+    for name, fn in (
+            ("hellinger", lambda: hellinger_velocity(
+                generated, ref.reshape(-1, 135))),
+            ("fgd_raw", lambda: fgd(wg, ref)),
+            ("fgd_feature", lambda: fgd(wg, ref, encoder=enc))):
+        t0 = time.perf_counter()
+        fn()
+        parts[name] = 1e3 * (time.perf_counter() - t0)
+    log("phase 18 evaluate parts (host clock, ms): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+
+
+def phase18_mfcc(dev, built):
+    """SphinxMFCC on the card over phase 15's recordings (trimmed to the
+    shortest) against the host oracle sphinx_mfcc_np and the CPU port."""
+    import numpy as np
+    from qpgesture_tpu_torch.ops.mfcc import (MFCCConfig, SphinxMFCC,
+                                              sphinx_mfcc_np)
+    n = min(len(r.wav) for r in built["recs"])
+    sigs = np.stack([r.wav[:n] for r in built["recs"]]).astype(np.float32)
+    cfg = MFCCConfig(frate=60)
+    card = SphinxMFCC(cfg, device=dev)
+    got = card(sigs)
+    cpu = SphinxMFCC(cfg, device="cpu")(sigs)
+    oracle = np.stack([sphinx_mfcc_np(s.astype(np.float64), cfg)
+                       for s in sigs])
+    err_cpu = float(np.abs(got - cpu).max())
+    err_oracle = float(np.abs(got - oracle).max())
+    ms = median_ms(lambda: card(sigs), 5, warmup=1)
+    log(f"phase 18 batched MFCC on the card: {sigs.shape} -> {got.shape}; "
+        f"vs the CPU port {err_cpu:.3e} (tol {MFCC_ATOL}), vs the float64 "
+        f"host oracle {err_oracle:.3e} (tol {MFCC_ORACLE_ATOL}); {ms:.3f} ms "
+        f"(host frames in, host array out)")
+    if got.shape != oracle.shape or err_cpu > MFCC_ATOL or \
+            err_oracle > MFCC_ORACLE_ATOL:
+        raise SystemExit("batched MFCC on the card differs")
+
+
 def load_wav(path: str):
     from qpgesture_tpu_torch.pipelines.audio_prep import load_wav_16k
     return load_wav_16k(path)
@@ -3146,12 +3761,33 @@ def main() -> int:
         phase17_end2end(dev, rng, tmp, vq_out)
         phase17_serve(dev, built, vq_out, pae_card)
         k1, k2 = K1.launches, K2.launches
-    log(f"phase 17 launches: K1 {k1}, K2 {k2} (WavLM is not on this path)")
-    if not k1:
-        raise SystemExit("phase 17 did not launch K1")
-    k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
+        log(f"phase 17 launches: K1 {k1}, K2 {k2} (WavLM is not on this "
+            f"path)")
+        if not k1:
+            raise SystemExit("phase 17 did not launch K1")
+        k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
+        del pae_card
+        torch.cuda.empty_cache()
+        phase_wall("phase 17")
+
+        # -- phase 18: resync training, evaluation, raw-pose search --------
+        K1.launches = K2.launches = 0
+        phase18_rawpose(dev, rng, built, tmp)
+        data, fake = phase18_resync_data(built, tmp)
+        resync_dir = phase18_train_resync(dev, data, tmp)
+        torch.cuda.empty_cache()
+        generated = phase18_serve(dev, built, tmp, resync_dir, fake)
+        phase18_evaluate(dev, built, tmp, vq_out, generated)
+        phase18_mfcc(dev, built)
+        k1, k2 = K1.launches, K2.launches
+        log(f"phase 18 launches: K1 {k1} (warmup's bucket, generate "
+            f"--resync and its library check), K2 {k2} (WavLM is not on "
+            f"this path)")
+        if not k1:
+            raise SystemExit("phase 18 did not launch K1")
+        k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
     del built
-    phase_wall("phase 17")
+    phase_wall("phase 18")
 
     # -- the kernels line and the result ------------------------------------
     kernels_line = {"kernels": [{

@@ -15,6 +15,9 @@ Subcommands mirror the reference package's entry points:
   train-vqvae    train.py --config codebook.yml               -> <out>/*.pt
   train-pae      PAE.py --stage train                         -> <out>/*.pt
   train-end2end  end2end.py (the GRU baseline)                -> <out>/*.pt
+  train-resync   train_resync_gestureknn.py (WGAN-GP)         -> <out>/latest.pt
+  train-fgd      the feature-space FGD extractor              -> checkpoint file
+  evaluate       Hellinger + FGD between motion sets          -> one JSON line
 
 They take the reference package's flags; those that run a model also take
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch paths).
@@ -394,8 +397,6 @@ def cmd_warmup(args):
     from .device import resolve_device
     from .match.engine import CodeKNNEngine
 
-    if args.rawpose_batch:
-        raise NotImplementedError("warmup --rawpose-batch is not ported yet")
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         from .ops import cuda_build, flash_attention_cuda, levenshtein_cuda
@@ -464,11 +465,30 @@ def cmd_warmup(args):
                                 sc[0] if sc is not None else None)
             print(f"solo stream: first push "
                   f"{time.perf_counter() - t0:7.1f} s")
+    if args.rawpose_batch:
+        # the batched raw-pose GestureKNN search over the train database
+        from .core.schemas import DatabaseBundle
+        from .match.gesture_knn import (GestureKNNEngine,
+                                        normalize_gesture_knn,
+                                        stage_gesture_knn)
+        C = args.rawpose_batch
+        bundle = DatabaseBundle.load(args.train_database)
+        gdb = stage_gesture_knn(bundle.mfcc, bundle.body)
+        gdb_n, test_feat = normalize_gesture_knn(
+            gdb, rng.randn(C, gdb.feat.shape[1], 14).astype(np.float32))
+        gengine = GestureKNNEngine(gdb_n, device=dev)
+        init = np.zeros((C,), np.int64)
+        t0 = time.perf_counter()
+        gengine.search_motion_batch(test_feat, init, init)
+        print(f"raw-pose batch C={C}: first call "
+              f"{time.perf_counter() - t0:7.1f} s")
     print(f"warm: {len(buckets)} bucket(s), preset {args.preset}"
           f"{', decode' if model is not None else ''}"
           f"{', serving' if pipeline is not None else ''}"
           + (f", {args.streams}-stream pool + solo session"
-             if args.streams and cfg.chain_windows else ""))
+             if args.streams and cfg.chain_windows else "")
+          + (f", raw-pose batch {args.rawpose_batch}"
+             if args.rawpose_batch else ""))
 
 
 def cmd_signature(args):
@@ -831,6 +851,164 @@ def cmd_train_end2end(args):
                         name="latest")
 
 
+def _load_motion(path: str) -> np.ndarray:
+    """evaluate's inputs: .npy, or an npz holding poses / body / motion."""
+    if path.endswith(".npy"):
+        return np.load(path)
+    data = np.load(path, allow_pickle=True)
+    for key in ("poses", "body", "motion"):
+        if key in data.files:
+            return data[key]
+    raise ValueError(f"{path}: no poses/body/motion array")
+
+
+def cmd_evaluate(args):
+    """Score generated motion against ground truth: Hellinger distance over
+    velocity histograms and FGD (raw space on the host; feature space with
+    the trained extractor of --fgd-extractor and/or the VQ-VAE's encoder
+    codes, each encoding on --device). Inputs are npz files with a poses /
+    body / motion array or .npy, of shape (T, C) or (N, T, C). Prints one
+    JSON line, the JAX package's."""
+    import json
+    import sys
+
+    import torch
+
+    from .device import resolve_device
+    from .render.metrics import fgd, hellinger_velocity
+
+    dev = resolve_device(args.device)
+    gen = _load_motion(args.generated)
+    ref = _load_motion(args.reference)
+    flat_gen = gen.reshape(-1, gen.shape[-1])
+    flat_ref = ref.reshape(-1, ref.shape[-1])
+    out = {"hellinger": round(hellinger_velocity(flat_gen, flat_ref), 6)}
+
+    win = args.window
+
+    def windows(x):
+        n = (x.shape[0] // win) * win
+        return x[:n].reshape(-1, win, x.shape[-1])
+
+    wg, wr = windows(flat_gen), windows(flat_ref)
+    out["fgd_raw"] = round(fgd(wg, wr), 4)
+
+    if args.vqvae_checkpoint:
+        from .core.config import VQVAEConfig, load_config
+        conf = load_config(args.config) if args.config else None
+        model = _load_vqvae(args.vqvae_checkpoint,
+                            conf.vqvae if conf else VQVAEConfig(), dev)
+        # the encoder was trained on z-normalized windows (encode_windows)
+        mean = np.asarray(conf.data_mean, np.float32) \
+            if conf and conf.data_mean is not None else None
+        std = np.clip(np.asarray(conf.data_std, np.float32), 0.01, None) \
+            if conf and conf.data_std is not None else None
+        if mean is None:
+            print("warning: no data_mean/data_std in --config; "
+                  "fgd_feature encodes un-normalized windows",
+                  file=sys.stderr)
+
+        @torch.no_grad()
+        def encoder(wins):
+            w = wins.astype(np.float32)
+            if mean is not None:
+                w = (w - mean) / std
+            zs = model.encode(torch.from_numpy(w).to(dev)).cpu().numpy()
+            return zs.reshape(zs.shape[0], -1).astype(np.float64)
+
+        out["fgd_vqvae_latent" if args.fgd_extractor else "fgd_feature"] \
+            = round(fgd(wg, wr, encoder=encoder), 4)
+
+    if args.fgd_extractor:
+        # the paper's protocol (FGD-feat): a dedicated motion autoencoder
+        # trained on ground truth (the train-fgd CLI)
+        from .render.fgd_extractor import fgd_encoder_fn, load_fgd_extractor
+        model, mean, std = load_fgd_extractor(args.fgd_extractor, device=dev)
+        if wg.shape[1] != model.cfg.window:
+            raise SystemExit(
+                f"--window {wg.shape[1]} != extractor window "
+                f"{model.cfg.window}; pass --window {model.cfg.window}")
+        out["fgd_feature"] = round(fgd(wg, wr, encoder=fgd_encoder_fn(
+            model, mean, std)), 4)
+    print(json.dumps(out))
+
+
+def cmd_train_fgd(args):
+    """Train the feature-space FGD extractor on ground-truth motion (the
+    Yoon et al. embedding-net protocol) on --device."""
+    from .device import resolve_device
+    from .render.fgd_extractor import (FGDExtractorConfig,
+                                       save_fgd_extractor,
+                                       train_fgd_extractor)
+
+    dev = resolve_device(args.device)
+    if os.path.isdir(args.data):
+        from .train.data import WindowedDataset
+        wins = WindowedDataset.load(args.data).poses
+    else:
+        data = np.load(args.data, allow_pickle=True)
+        if isinstance(data, np.ndarray):
+            wins = data
+        else:
+            key = next((k for k in ("body", "poses", "motion")
+                        if k in data.files), None)
+            if key is None:
+                raise SystemExit(f"{args.data}: no body/poses/motion array")
+            wins = data[key]
+    if wins.ndim == 2:
+        n = (wins.shape[0] // args.window) * args.window
+        wins = wins[:n].reshape(-1, args.window, wins.shape[-1])
+    cfg = FGDExtractorConfig(channels=wins.shape[-1], window=wins.shape[1],
+                             latent=args.latent)
+    model, mean, std = train_fgd_extractor(
+        wins, cfg, epochs=args.epochs, batch_size=args.batch_size,
+        seed=args.seed, device=dev)
+    save_fgd_extractor(args.out, model, mean, std)
+    print(f"wrote {args.out}: latent={cfg.latent} window={cfg.window} "
+          f"({wins.shape[0]} training windows)")
+
+
+def cmd_train_resync(args):
+    """ResyncNet WGAN-GP training (train_resync_gestureknn.py:108-187) on an
+    npz holding knn / real as (N, T, n_mfcc + n_joints): KNN-searched motion
+    windows with their audio features, and ground-truth windows. Batches
+    are the JAX package's (np.random.RandomState(0).randint); the losses are
+    read on the host only every iters // 10 iterations; --out writes
+    <out>/latest.pt."""
+    from .core.config import ResyncConfig, load_config
+    from .device import resolve_device, to_device
+    from .train.checkpoints import save_checkpoint
+    from .train.train_resync import ResyncTrainer
+
+    dev = resolve_device(args.device)
+    conf = load_config(args.config) if args.config else None
+    cfg = conf.resync if conf and getattr(conf, "resync", None) \
+        else ResyncConfig()
+    data = np.load(args.data)
+    x_knn = data["knn"].astype(np.float32)
+    x_real = data["real"].astype(np.float32)
+    if x_knn.shape != x_real.shape:
+        raise SystemExit(f"{args.data}: knn {x_knn.shape} and real "
+                         f"{x_real.shape} differ")
+    n, t, c = x_knn.shape
+    trainer = ResyncTrainer(cfg, n_mfcc=c - args.n_joints,
+                            n_joints=args.n_joints, num_frames=t, device=dev)
+    # the whole set on the device once; each batch a gather there
+    knn_d, real_d = to_device(x_knn, dev), to_device(x_real, dev)
+    rng = np.random.RandomState(0)
+    iters = args.iters or cfg.max_iters
+    bs = min(args.batch_size or cfg.batch_size, n)
+    for it in range(iters):
+        idx = to_device(rng.randint(0, n, size=bs), dev)
+        logs = trainer.train_iteration(knn_d[idx], real_d[idx], it)
+        if it % max(1, iters // 10) == 0:
+            print(f"iter {it}: " + " ".join(f"{k} {float(v):.4f}"
+                                            for k, v in logs.items()))
+    if args.out:
+        save_checkpoint(args.out, trainer.state_dict(), name="latest")
+        print(f"saved {args.out}")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="qpgesture_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -918,7 +1096,8 @@ def main(argv=None):
                    help="not ported yet")
     g.add_argument("--resync", metavar="CKPT",
                    help="apply a trained ResyncNet to the decoded motion "
-                        "(reference best_model.pth)")
+                        "(reference best_model.pth or a train-resync "
+                        "output directory)")
     g.add_argument("--device", default="cuda",
                    help="torch device (default cuda; raises without a GPU)")
     g.set_defaults(fn=cmd_generate)
@@ -1001,7 +1180,8 @@ def main(argv=None):
                     help="also run one StreamingPool tick for this many "
                          "streams, and one solo StreamingSession push")
     wu.add_argument("--rawpose-batch", type=int, default=0,
-                    help="not ported yet")
+                    help="also run the batched raw-pose GestureKNN search "
+                         "for this many clips")
     wu.add_argument("--device", default="cuda",
                     help="torch device (default cuda; raises without a GPU)")
     wu.set_defaults(fn=cmd_warmup)
@@ -1109,6 +1289,49 @@ def main(argv=None):
     te.add_argument("--device", default="cuda",
                     help="torch device (default cuda; raises without a GPU)")
     te.set_defaults(fn=cmd_train_end2end)
+
+    ev = sub.add_parser("evaluate",
+                        help="Hellinger + FGD between motion sets")
+    ev.add_argument("--generated", required=True)
+    ev.add_argument("--reference", required=True)
+    ev.add_argument("--window", type=int, default=240)
+    ev.add_argument("--vqvae-checkpoint")
+    ev.add_argument("--fgd-extractor",
+                    help="trained FGD feature extractor (train-fgd CLI) "
+                         "for the paper's feature-space FGD")
+    ev.add_argument("--config")
+    ev.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; raises without a GPU)")
+    ev.set_defaults(fn=cmd_evaluate)
+
+    tf = sub.add_parser("train-fgd",
+                        help="train the feature-space FGD extractor")
+    tf.add_argument("--data", required=True,
+                    help="ground-truth windows: npz with body/poses, .npy, "
+                         "or a WindowedDataset dir")
+    tf.add_argument("--out", required=True)
+    tf.add_argument("--window", type=int, default=240,
+                    help="window length when --data holds flat (T, C)")
+    tf.add_argument("--latent", type=int, default=32)
+    tf.add_argument("--epochs", type=int, default=20)
+    tf.add_argument("--batch-size", type=int, default=64)
+    tf.add_argument("--seed", type=int, default=0)
+    tf.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; raises without a GPU)")
+    tf.set_defaults(fn=cmd_train_fgd)
+
+    tr = sub.add_parser("train-resync",
+                        help="train the ResyncNet WGAN-GP refiner")
+    tr.add_argument("--data", required=True,
+                    help="npz with knn/real (N, T, n_mfcc+n_joints) arrays")
+    tr.add_argument("--config")
+    tr.add_argument("--n-joints", type=int, default=135)
+    tr.add_argument("--iters", type=int)
+    tr.add_argument("--batch-size", type=int)
+    tr.add_argument("--out")
+    tr.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; raises without a GPU)")
+    tr.set_defaults(fn=cmd_train_resync)
 
     args = p.parse_args(argv)
     args.fn(args)

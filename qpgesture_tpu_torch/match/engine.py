@@ -34,7 +34,7 @@ from ..core.config import MatchConfig
 from ..device import DeviceLike, resolve_device, to_device
 from ..ops.levenshtein_cuda import levenshtein_matrix
 from ..ops.precision import mm_nt_f32, split_bf16
-from ..ops.ranking import rank, rank_np
+from ..ops.ranking import rank, rank_np, tree_sum
 from .database import MatchDatabase
 from .geometry import phase_start
 from .oracle import CandidateTable, CodeKNNOracle, OracleResult
@@ -428,17 +428,6 @@ def _tabulate_selection(cfg: MatchConfig, dev: DeviceDatabase,
                    r_a if cfg.use_aud else r_t), None
 
 
-def _tree_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis (a power of two) as a fixed binary tree of
-    elementwise adds: the same IEEE operations in the same order on every
-    device, so the CPU and the GPU compute bit-equal values."""
-    n = x.shape[-1]
-    while n > 1:
-        n //= 2
-        x = x[..., :n] + x[..., n:]
-    return x[..., 0]
-
-
 def _phase_continuity(prev: torch.Tensor, heads: torch.Tensor
                       ) -> torch.Tensor:
     """prev (C, 8, 16), heads (C, K, 8, 16) -> (C, K) distances
@@ -450,9 +439,9 @@ def _phase_continuity(prev: torch.Tensor, heads: torch.Tensor
                   2).reshape(C, K, -1)
     b = torch.cat((prev[:, None, 5:].expand(C, K, 3, 16), heads[:, :, :5]),
                   2).reshape(C, K, -1)
-    n = torch.sqrt(_tree_sum(torch.cat((a * a, b * b), 1)))  # (C, 2K)
+    n = torch.sqrt(tree_sum(torch.cat((a * a, b * b), 1)))  # (C, 2K)
     n = torch.where(n > 0, n, torch.ones_like(n))
-    return 1.0 - _tree_sum((a / n[:, :K, None]) * (b / n[:, K:, None]))
+    return 1.0 - tree_sum((a / n[:, :K, None]) * (b / n[:, K:, None]))
 
 
 def _fuse_scan_clips(cfg: MatchConfig, n_steps: int, clips: int,

@@ -12,7 +12,11 @@ reference checkpoints load with ``load_state_dict``
 ``convert_resync`` and ``convert_generator_gru``,
 ``models/wavlm.convert_wavlm``,
 ``models/vq_wav2vec.convert_vq_wav2vec``, ``models/minilm.convert_minilm``):
-they map a flax parameter tree back to a state_dict.
+they map a flax parameter tree back to a state_dict. The JAX package has
+no converter for the resync critic or the FGD extractor: the pairs
+``discriminator_state_dict_from_jax`` / ``discriminator_state_dict_to_jax``
+and ``fgd_state_dict_from_jax`` / ``fgd_state_dict_to_jax`` carry them both
+ways.
 
 Layout facts (the inverse of those in torch_convert):
   * flax conv kernel (k, in, out) -> Conv1d weight (out, in, k);
@@ -23,7 +27,7 @@ Layout facts (the inverse of those in torch_convert):
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Dict
 
 import numpy as np
 import torch
@@ -165,6 +169,88 @@ def resync_state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
                        f"{tkey}.{bn_idx}", sd)
     _conv1d(params["last"], "conv_last", sd)
     return sd
+
+
+def _conv1d_to_jax(sd: Dict, key: str) -> Dict:
+    return {"kernel": sd[f"{key}.weight"].detach().cpu().numpy()
+            .transpose(2, 1, 0), "bias": sd[f"{key}.bias"].detach().cpu()
+            .numpy()}
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def discriminator_state_dict_from_jax(variables: Dict
+                                      ) -> Dict[str, torch.Tensor]:
+    """The JAX package's resync Discriminator parameters (``d1``/``d2``/
+    ``d3`` InstanceNorm double convs, ``critic``) -> the port's
+    Discriminator state_dict. The critic flattens (B, T/8, 128) time-major
+    in JAX and (B, 128, T/8) channel-major here, so its (128 T/8, 1) kernel
+    is permuted, not only transposed."""
+    params = variables.get("params", variables)
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("d1", "d2", "d3"):
+        p = params[name]
+        for i, (conv_idx, norm_idx) in enumerate(((0, 1), (3, 4))):
+            _conv1d(p[f"conv{i}"], f"{name}.{conv_idx}", sd)
+            sd[f"{name}.{norm_idx}.weight"] = _t(p[f"in{i}_scale"])
+            sd[f"{name}.{norm_idx}.bias"] = _t(p[f"in{i}_bias"])
+    kernel = np.asarray(params["critic"]["kernel"])      # (T8 * 128, 1)
+    sd["critic.weight"] = _t(kernel.reshape(-1, 128).T.reshape(1, -1))
+    return sd
+
+
+def discriminator_state_dict_to_jax(sd: Dict[str, torch.Tensor]) -> Dict:
+    """The inverse of ``discriminator_state_dict_from_jax``: the port's
+    Discriminator state_dict -> the JAX package's {"params": ...}."""
+    params: Dict = {}
+    for name in ("d1", "d2", "d3"):
+        p: Dict = {}
+        for i, (conv_idx, norm_idx) in enumerate(((0, 1), (3, 4))):
+            p[f"conv{i}"] = _conv1d_to_jax(sd, f"{name}.{conv_idx}")
+            p[f"in{i}_scale"] = _np(sd[f"{name}.{norm_idx}.weight"])
+            p[f"in{i}_bias"] = _np(sd[f"{name}.{norm_idx}.bias"])
+        params[name] = p
+    weight = _np(sd["critic.weight"])                    # (1, 128 * T8)
+    params["critic"] = {"kernel": np.ascontiguousarray(
+        weight.reshape(128, -1).T.reshape(-1, 1))}
+    return {"params": params}
+
+
+def fgd_state_dict_from_jax(params: Dict, cfg) -> Dict[str, torch.Tensor]:
+    """The JAX package's FGDAutoencoder parameters -> the port's
+    FGDAutoencoder state_dict (``render/fgd_extractor``): convs (k, in,
+    out) -> (out, in, k); the transposed convs' flax kernels (k, in, out)
+    -> (in, out, k) flipped in time (flax's ConvTranspose correlates the
+    dilated input with the kernel as stored, torch's with it flipped);
+    Dense (in, out) -> Linear (out, in)."""
+    params = params.get("params", params)
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(cfg.conv_layers):
+        _conv1d(params[f"enc{i}"], f"enc{i}", sd)
+        _conv_transpose1d(params[f"dec{i}"], f"dec{i}", sd)
+    _dense(params["to_latent"], "to_latent", sd)
+    _dense(params["from_latent"], "from_latent", sd)
+    _conv1d(params["to_pose"], "to_pose", sd)
+    return sd
+
+
+def fgd_state_dict_to_jax(sd: Dict[str, torch.Tensor], cfg) -> Dict:
+    """The inverse of ``fgd_state_dict_from_jax``: the port's state_dict ->
+    the JAX package's FGDAutoencoder params."""
+    params: Dict = {}
+    for i in range(cfg.conv_layers):
+        params[f"enc{i}"] = _conv1d_to_jax(sd, f"enc{i}")
+        params[f"dec{i}"] = {
+            "kernel": np.ascontiguousarray(
+                _np(sd[f"dec{i}.weight"]).transpose(2, 0, 1)[::-1]),
+            "bias": _np(sd[f"dec{i}.bias"])}
+    for name in ("to_latent", "from_latent"):
+        params[name] = {"kernel": _np(sd[f"{name}.weight"]).T,
+                        "bias": _np(sd[f"{name}.bias"])}
+    params["to_pose"] = _conv1d_to_jax(sd, "to_pose")
+    return params
 
 
 def generator_gru_state_dict_from_jax(variables: Dict, layers: int = 2
@@ -381,22 +467,16 @@ def load_pae_checkpoint(path: str, cfg: PAEConfig,
     return model
 
 
-def _load_reference_state_dict(path: str, key: str, what: str,
-                               trained: Optional[str] = None) -> Dict:
+def _load_reference_state_dict(path: str, key: str) -> Dict:
     """The state_dict of a reference torch checkpoint file: the ``key``
     entry of the pickled dict, or a bare state_dict, without the
-    DataParallel prefix. A directory is a trainer's output: the port's own
-    checkpoint ``<path>/<trained>.pt`` when ``trained`` names one (an orbax
+    DataParallel prefix. A directory is a trainer's output: the ``key``
+    entry of the port's own checkpoint ``<path>/latest.pt`` (an orbax
     directory of the JAX package's trainers raises there, naming what it
-    holds); otherwise that trainer is not ported yet and it raises."""
+    holds)."""
     if os.path.isdir(path):
-        if trained is None:
-            raise NotImplementedError(
-                f"{what} checkpoints are not ported yet: {path} is a "
-                "directory (an orbax checkpoint); pass a reference torch "
-                "checkpoint file")
         from ..train.checkpoints import restore_checkpoint
-        return restore_checkpoint(path, trained)[key]
+        return restore_checkpoint(path, "latest")[key]
     ckpt = _torch_load_reference(path)
     return strip_prefix(ckpt.get(key, ckpt))
 
@@ -404,10 +484,11 @@ def _load_reference_state_dict(path: str, key: str, what: str,
 def load_resync_checkpoint(path: str, device: DeviceLike = "cuda"
                            ) -> ResyncNet:
     """A reference ResyncNet checkpoint ({'model_resync_state_dict': sd},
-    train_resync_gestureknn.save_model, or a bare sd) as a port ResyncNet
-    in eval mode; its in/out widths are read off the weights."""
-    sd = _load_reference_state_dict(path, "model_resync_state_dict",
-                                    "train-resync")
+    train_resync_gestureknn.save_model, or a bare sd), or a ``train-resync``
+    output directory, whose ``latest.pt`` it reads (the generator under the
+    same key), as a port ResyncNet in eval mode; its in/out widths are read
+    off the weights."""
+    sd = _load_reference_state_dict(path, "model_resync_state_dict")
     model = ResyncNet(in_features=sd["dconv_down1.0.weight"].shape[1],
                       out_features=sd["conv_last.weight"].shape[0],
                       device=device)
@@ -422,8 +503,7 @@ def load_generator_gru_checkpoint(path: str, device: DeviceLike = "cuda"
     directory, whose ``latest.pt`` it reads (as the JAX package reads
     ``latest``), as a port GeneratorGRU in eval mode; its hidden and output
     widths are read off the weights."""
-    sd = _load_reference_state_dict(path, "model_dict", "train-end2end",
-                                    trained="latest")
+    sd = _load_reference_state_dict(path, "model_dict")
     model = GeneratorGRU(hidden=sd["project.weight_hh_l0"].shape[1],
                          output=sd["out.weight"].shape[0], device=device)
     model.load_state_dict(sd)

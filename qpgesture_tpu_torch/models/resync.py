@@ -1,5 +1,5 @@
 """ResyncNet: the 1-D UNet generator that "resyncs" KNN output motion to the
-audio (inference path).
+audio, and the WGAN-GP critic it is trained against.
 
 The port of ``qpgesture_tpu/models/resync.py``'s generator, with the
 reference's parameter names (Speech2GestureMatching/model.py:20-93), so a
@@ -12,10 +12,17 @@ LeakyReLU(0.2)) twice, with the convs at ``.0`` / ``.3`` and the norms at
 as the JAX package's ``avg_pool1d`` drops it) and back up with nearest
 upsampling and [upsampled, skip] concatenation.
 
-Inference only: BatchNorm runs on its running statistics (eps 1e-5) and
-the convolutions in true float32 (TF32 off package-wide). The WGAN-GP
-discriminator and its gradient penalty belong to training, which is not
-ported yet.
+The BatchNorms are ``models/batchnorm.BatchNorm1d`` (eps 1e-5): in eval
+they run on their running statistics, in training they move them as flax's
+BatchNorm (momentum 0.9) does, towards the biased batch variance. The
+convolutions run in true float32 (TF32 off package-wide).
+
+The critic, ``Discriminator`` (model.py:96-117), is three InstanceNorm double
+convs (512/256/128, LeakyReLU 0.2, average-pool halving) and a bias-free
+Linear over the flattened (128, T/8) map, in the reference's NCT layout;
+the JAX package names its parts ``d1``/``d2``/``d3``/``critic``, and so does
+the port. ``gradient_penalty`` is the WGAN-GP interpolation penalty
+(train_resync_gestureknn.py:38-105), a double backward through the critic.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ from torch import nn
 
 from ..core import constants as C
 from ..device import DeviceLike, resolve_device
+from .batchnorm import BatchNorm1d
 
 N_MFCC = 13
 
@@ -34,9 +42,9 @@ def double_conv(in_channels: int, out_channels: int) -> nn.Sequential:
     """The reference's double_conv (model.py:20-29)."""
     return nn.Sequential(
         nn.Conv1d(in_channels, out_channels, 3, padding=1),
-        nn.BatchNorm1d(out_channels), nn.LeakyReLU(0.2),
+        BatchNorm1d(out_channels), nn.LeakyReLU(0.2),
         nn.Conv1d(out_channels, out_channels, 3, padding=1),
-        nn.BatchNorm1d(out_channels), nn.LeakyReLU(0.2))
+        BatchNorm1d(out_channels), nn.LeakyReLU(0.2))
 
 
 class ResyncNet(nn.Module):
@@ -74,6 +82,68 @@ class ResyncNet(nn.Module):
         x = self.dconv_up2(torch.cat((up(x), c2), 1))
         x = self.dconv_up1(torch.cat((up(x), c1), 1))
         return self.conv_last(x)
+
+
+class InstanceNorm1d(nn.InstanceNorm1d):
+    """InstanceNorm1d(affine=True) written out: each (sample, channel) is
+    normalized over time with the biased variance and eps 1e-5, as the JAX
+    package's DoubleConv(norm="instance") does, in elementwise operations
+    that the gradient penalty differentiates twice on every device. Keeps
+    torch's parameter names."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, affine=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean = x.mean(-1, keepdim=True)
+        var = ((x - mean) ** 2).mean(-1, keepdim=True)
+        y = (x - mean) / torch.sqrt(var + self.eps)
+        return y * self.weight[:, None] + self.bias[:, None]
+
+
+def instance_double_conv(in_channels: int, out_channels: int
+                         ) -> nn.Sequential:
+    """The critic's double conv: double_conv with InstanceNorm, the convs
+    at .0 / .3 and the norms at .1 / .4."""
+    return nn.Sequential(
+        nn.Conv1d(in_channels, out_channels, 3, padding=1),
+        InstanceNorm1d(out_channels), nn.LeakyReLU(0.2),
+        nn.Conv1d(out_channels, out_channels, 3, padding=1),
+        InstanceNorm1d(out_channels), nn.LeakyReLU(0.2))
+
+
+class Discriminator(nn.Module):
+    """(B, in_features, T) MFCC | motion -> (B, 1) critic scores."""
+
+    def __init__(self, in_features: int = N_MFCC + C.NUM_JOINTS,
+                 num_frames: int = C.NUM_FRAMES,
+                 device: DeviceLike = "cuda"):
+        super().__init__()
+        self.d1 = instance_double_conv(in_features, 512)
+        self.d2 = instance_double_conv(512, 256)
+        self.d3 = instance_double_conv(256, 128)
+        self.critic = nn.Linear(128 * (num_frames // 8), 1, bias=False)
+        self.to(resolve_device(device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.avg_pool1d(self.d1(x), 2)
+        x = F.avg_pool1d(self.d2(x), 2)
+        x = F.avg_pool1d(self.d3(x), 2)
+        return self.critic(x.reshape(x.shape[0], -1))
+
+
+def gradient_penalty(disc: Discriminator, real: torch.Tensor,
+                     fake: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+    """mean((||d critic / d interp|| - 1)^2) at interp = eps * real + (1 -
+    eps) * fake, the norm per sample over (C, T) with 1e-12 under the root.
+    ``eps`` (B, 1, 1) is the caller's draw. The points are constants (as the
+    JAX package's stopped fakes); the graph of their gradient is kept, so
+    the penalty's gradient reaches the critic's parameters."""
+    interp = (eps * real + (1 - eps) * fake).detach().requires_grad_(True)
+    grads, = torch.autograd.grad(disc(interp).sum(), interp,
+                                 create_graph=True)
+    norms = torch.sqrt((grads ** 2).sum((1, 2)) + 1e-12)
+    return ((norms - 1.0) ** 2).mean()
 
 
 def resync_stats(mfcc: np.ndarray, motion: np.ndarray):

@@ -17,6 +17,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve_device, to_device
 
 
 def mel(f):
@@ -138,3 +141,49 @@ def sphinx_mfcc_np(sig: np.ndarray, cfg: MFCCConfig | None = None
     logspec = np.log(np.clip(power @ fb, 1e-5, np.inf))
     return logspec @ s2dctmat(cfg.nfilt, cfg.ncep).T / cfg.nfilt
 
+
+
+class SphinxMFCC:
+    """Batched MFCC on the device: (B, n_samples) -> (B, n_frames, ncep).
+
+    Frames are gathered on the host (the cyclic padding of the short final
+    frames, float64 then float32, as the JAX package does); pre-emphasis,
+    the Hamming window, ``rfft``, the power spectrum, the mel bank and the
+    DCT run on ``device`` in float32, the two products as true float32
+    GEMMs (TF32 off package-wide)."""
+
+    def __init__(self, cfg: MFCCConfig | None = None,
+                 device: DeviceLike = "cuda"):
+        self.cfg = cfg or MFCCConfig()
+        self.device = resolve_device(device)
+        c = self.cfg
+        self._fb = to_device(mel_filterbank(c.nfft, c.nfilt, c.samprate,
+                                            c.lowerf, c.upperf),
+                             self.device, torch.float32)
+        self._dct = to_device(s2dctmat(c.nfilt, c.ncep).T, self.device,
+                              torch.float32)
+        self._win = to_device(np.hamming(c.wlen), self.device, torch.float32)
+
+    def compute(self, frames: torch.Tensor, priors: torch.Tensor
+                ) -> torch.Tensor:
+        """frames (B, n_frames, wlen) and each frame's prior sample (B,
+        n_frames), on the device -> (B, n_frames, ncep)."""
+        c = self.cfg
+        emph = torch.cat((frames[..., :1] - c.alpha * priors[..., None],
+                          frames[..., 1:] - c.alpha * frames[..., :-1]), -1)
+        spec = torch.fft.rfft(emph * self._win, c.nfft, dim=-1)
+        power = spec.real ** 2 + spec.imag ** 2
+        logspec = torch.log(torch.clamp(power @ self._fb, min=1e-5))
+        return (logspec @ self._dct) / c.nfilt
+
+    def __call__(self, sigs: np.ndarray) -> np.ndarray:
+        cfg = self.cfg
+        sigs = np.asarray(sigs, np.float32)
+        B = sigs.shape[0]
+        frames = np.stack([_gather_frames_np(s.astype(np.float64), cfg)
+                           for s in sigs]).astype(np.float32)
+        priors = np.concatenate(
+            [np.zeros((B, 1), np.float32), frames[:, :-1, -1]], axis=1)
+        out = self.compute(to_device(frames, self.device),
+                           to_device(priors, self.device))
+        return out.cpu().numpy()

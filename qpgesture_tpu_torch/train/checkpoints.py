@@ -49,25 +49,35 @@ def restore_checkpoint(directory: str, name: str = "latest",
 
 
 class Checkpointed:
-    """The checkpoint dict of a trainer holding ``model``, ``opt`` and the
-    update count ``step``."""
+    """The checkpoint dict of a trainer: the state_dict of each module and
+    optimizer it owns, under the keys that ``MODULES`` and ``OPTIMIZERS``
+    map to its attributes, with the update count ``step`` and the epoch."""
 
-    def model_state(self) -> Dict[str, torch.Tensor]:
-        return dict(self.model.state_dict())
+    MODULES = {"model_dict": "model"}
+    OPTIMIZERS = {"optimizer": "opt"}
+
+    def module_state(self, attr: str) -> Dict[str, torch.Tensor]:
+        return dict(getattr(self, attr).state_dict())
 
     def state_dict(self, epoch: int = 0) -> Dict[str, Any]:
-        return {"model_dict": self.model_state(),
-                "optimizer": self.opt.state_dict(), "step": self.step,
-                "epoch": epoch}
+        state = {key: self.module_state(attr)
+                 for key, attr in self.MODULES.items()}
+        state.update({key: getattr(self, attr).state_dict()
+                      for key, attr in self.OPTIMIZERS.items()})
+        state.update(step=self.step, epoch=epoch)
+        return state
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         """Restore a ``state_dict`` (on any device). Adam's step counts stay
         on the host, where torch keeps them for a non-capturable optimizer: a
         count restored onto the card would make every later update read it
         back."""
-        self.model.load_state_dict(state["model_dict"])
-        self.opt.load_state_dict(state["optimizer"])
-        for st in self.opt.state.values():
-            if isinstance(st.get("step"), torch.Tensor):
-                st["step"] = st["step"].cpu()
+        for key, attr in self.MODULES.items():
+            getattr(self, attr).load_state_dict(state[key])
+        for key, attr in self.OPTIMIZERS.items():
+            opt = getattr(self, attr)
+            opt.load_state_dict(state[key])
+            for st in opt.state.values():
+                if isinstance(st.get("step"), torch.Tensor):
+                    st["step"] = st["step"].cpu()
         self.step = int(state["step"])

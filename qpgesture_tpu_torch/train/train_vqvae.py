@@ -88,7 +88,7 @@ class VQVAETrainer(Checkpointed):
             h.reshape(-1, h.shape[-1]), self.model.cfg.l_bins,
             self.generator))
 
-    def model_state(self) -> Dict[str, torch.Tensor]:
+    def module_state(self, attr: str) -> Dict[str, torch.Tensor]:
         """The model under the reference's names, with the codebook's EMA
         statistics."""
         block = self.model.codebook_block

@@ -493,5 +493,7 @@ def test_warmup_runs_on_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "bucket W=   2" in out and "2-stream pool + solo session" in out
     assert "decode, serving" in out
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        port_cli(["warmup"] + db_args + ["--rawpose-batch", "2"])
+    port_cli(["warmup"] + db_args + ["--rawpose-batch", "2"])
+    out = capsys.readouterr().out
+    assert "raw-pose batch C=2: first call" in out
+    assert out.rstrip().endswith(", raw-pose batch 2")

@@ -556,3 +556,111 @@ def test_end2end_train_step_on_card_matches_cpu(cuda):
     for name, buf in card.model.named_buffers():
         if "running" in name:
             assert float((buf.cpu() - cpu_bufs[name]).abs().max()) <= 1e-5
+
+
+# a LeakyReLU input within rounding of 0 takes the other slope on one
+# device, and the gradient penalty differentiates the slopes again: one such
+# element moves a layer's gradient by ~1e-3 of its norm (chip_smoke.py's
+# RESYNC_GRAD_RTOL, with the float64 reference it logs)
+RESYNC_GRAD_RTOL = 3e-2
+
+
+def _resync_trainers(cuda):
+    from qpgesture_tpu_torch.core.config import ResyncConfig
+    from qpgesture_tpu_torch.train.train_resync import ResyncTrainer
+    cfg = ResyncConfig(gen_hop=1)
+    cpu = ResyncTrainer(cfg, n_mfcc=13, n_joints=135, num_frames=240,
+                        device="cpu", seed=21)
+    card = ResyncTrainer(cfg, n_mfcc=13, n_joints=135, num_frames=240,
+                         device=cuda, seed=21)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(21)
+    x_knn, x_real = (torch.from_numpy(rng.randn(8, 240, 148).astype(
+        np.float32)) for _ in range(2))
+    return cpu, card, x_knn, x_real
+
+
+def test_resync_iteration_on_card_matches_cpu(cuda):
+    """One critic step and one generator step of the full-width ResyncNet
+    and critic at batch 8 from the same weights and interpolation points,
+    the generator step against the same critic (Adam with b1 = 0 moves each
+    weight by about lr times its gradient's sign, so weights whose gradient
+    is rounding noise leave the two updated critics ~lr apart): losses 1e-5
+    relative, gradients RESYNC_GRAD_RTOL (the conv biases that feed a
+    BatchNorm or an InstanceNorm, whose gradient is 0, to that of the
+    model's largest |g|), BatchNorm statistics 1e-5 relative to each
+    tensor's largest magnitude."""
+    cpu, card, x_knn, x_real = _resync_trainers(cuda)
+    eps = torch.rand((8, 1, 1), generator=torch.Generator().manual_seed(21))
+    knn, real = x_knn.to(cuda), x_real.to(cuda)
+    want = {"d_loss": cpu.d_step(x_knn, x_real, eps)}
+    got = {"d_loss": card.d_step(knn, real, eps.to(cuda))}
+    card.disc.load_state_dict(cpu.disc.state_dict())
+    want["g_loss"] = cpu.g_step(x_knn, x_real)
+    got["g_loss"] = card.g_step(knn, real)
+    for key in ("d_loss", "g_loss"):
+        assert abs(float(got[key]) - float(want[key])) <= \
+            1e-5 * max(abs(float(want[key])), 1.0), key
+    for a, b in ((card.disc, cpu.disc), (card.gen, cpu.gen)):
+        fed = {n for n, _ in b.named_parameters()
+               if n.endswith((".0.bias", ".3.bias"))}
+        assert _grad_err(a, b, fed) <= RESYNC_GRAD_RTOL
+    cpu_bufs = dict(cpu.gen.named_buffers())
+    for name, buf in card.gen.named_buffers():
+        if "running" in name:
+            want = cpu_bufs[name]
+            assert float((buf.cpu() - want).abs().max()) <= \
+                1e-5 * float(want.abs().max()), name
+
+
+def test_resync_iteration_makes_no_host_sync(cuda):
+    _, card, x_knn, x_real = _resync_trainers(cuda)
+    knn, real = x_knn.to(cuda), x_real.to(cuda)
+    card.train_iteration(knn, real, 0)          # optimizer state
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logs = card.train_iteration(knn, real, 5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert sorted(logs) == ["d_loss", "g_loss"] and card.step == 2
+
+
+def test_fgd_encoder_on_card_matches_cpu(cuda):
+    from qpgesture_tpu_torch.render.fgd_extractor import (FGDAutoencoder,
+                                                          FGDExtractorConfig,
+                                                          fgd_encoder_fn)
+    torch.manual_seed(22)
+    cpu = FGDAutoencoder(FGDExtractorConfig(), device="cpu").eval()
+    card = FGDAutoencoder(FGDExtractorConfig(), device=cuda).eval()
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(22)
+    wins = rng.randn(16, 240, 135).astype(np.float32)
+    mean, std = rng.randn(135) * 0.1, rng.rand(135) + 0.5
+    want = fgd_encoder_fn(cpu, mean, std)(wins)
+    got = fgd_encoder_fn(card, mean, std)(wins)
+    assert float(np.abs(got - want).max()) <= 1e-5 * float(
+        np.abs(want).max())
+
+
+def test_rawpose_batch_on_card_matches_cpu_and_solo(cuda):
+    """search_motion_batch over a staged database of tests/fixtures.py's
+    shapes: bit-equal to the CPU port and, lane by lane, to a solo
+    search_motion on the card."""
+    from qpgesture_tpu_torch.match.gesture_knn import (
+        GestureKNNEngine, normalize_gesture_knn, stage_gesture_knn)
+    rng = np.random.RandomState(23)
+    mfcc = rng.randn(32, 240, 14).astype(np.float32)
+    body = rng.randn(32, 240, 135).astype(np.float32)
+    db, test = normalize_gesture_knn(stage_gesture_knn(mfcc, body),
+                                     rng.randn(4, 240, 14).astype(np.float32))
+    seqs, frms = np.array([0, 5, 9, 31]), np.array([0, 100, 17, 200])
+    ks = np.array([0, 1, 3, 0])
+    card = GestureKNNEngine(db, device=cuda)
+    got = card.search_motion_batch(test, seqs, frms, ks)
+    want = GestureKNNEngine(db, device="cpu").search_motion_batch(
+        test, seqs, frms, ks)
+    np.testing.assert_array_equal(got, want)
+    for c in range(4):
+        np.testing.assert_array_equal(got[c], card.search_motion(
+            test[c], int(seqs[c]), int(frms[c]), int(ks[c])))

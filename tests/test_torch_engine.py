@@ -15,6 +15,7 @@ from qpgesture_tpu.match import database as jax_db
 from qpgesture_tpu.match import engine as jax_engine
 from qpgesture_tpu_torch.match import database as port_db
 from qpgesture_tpu_torch.match import engine as port_engine
+from qpgesture_tpu_torch.ops.ranking import tree_sum
 
 from fixtures import make_fixture
 from test_torch_staging import port_config, stage
@@ -129,7 +130,14 @@ def test_predict_with_explicit_seed_matches_jax():
 
 
 def test_tree_sum_is_a_fixed_order_sum():
+    """The engine's fixed-order sum (ops/ranking.tree_sum), at a power of
+    two as the phase-continuity distances take it and at odd lengths, over
+    the last axis and a leading one."""
     x = torch.arange(128, dtype=torch.float32).reshape(1, 128) / 7
-    assert port_engine._tree_sum(x).shape == (1,)
-    np.testing.assert_allclose(port_engine._tree_sum(x).numpy(),
+    assert tree_sum(x).shape == (1,)
+    np.testing.assert_allclose(tree_sum(x).numpy(),
                                x.double().sum(-1).numpy(), rtol=1e-6)
+    for n in (45, 180, 3):
+        z = torch.arange(n * 2, dtype=torch.float32).reshape(n, 2) / 7
+        np.testing.assert_allclose(tree_sum(z, 0).numpy(),
+                                   z.double().sum(0).numpy(), rtol=1e-6)

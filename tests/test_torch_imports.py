@@ -34,7 +34,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
               "pipelines.release", "models.resync", "models.gru_baseline",
               "ops.precision", "models.batchnorm", "models.bottleneck",
               "train.checkpoints", "train.train_vqvae", "train.train_pae",
-              "train.train_end2end", "utils.metrics_log"):
+              "train.train_end2end", "utils.metrics_log",
+              "train.train_resync", "render.metrics", "render.fgd_extractor",
+              "match.gesture_knn", "match.control", "motion.features"):
         assert f"qpgesture_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -161,10 +163,46 @@ def test_entry_points_default_to_cuda(tmp_path):
     for cmd in ("train-vqvae", "train-pae", "train-end2end"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main([cmd, "--config", missing, "--data", missing])
+
+    # the resync trainer, the evaluation CLIs, the raw-pose engine and the
+    # batched MFCC
+    from qpgesture_tpu_torch.core.config import ResyncConfig
+    from qpgesture_tpu_torch.match.gesture_knn import (GestureKNNData,
+                                                       GestureKNNEngine)
+    from qpgesture_tpu_torch.models.resync import Discriminator
+    from qpgesture_tpu_torch.ops.mfcc import SphinxMFCC
+    from qpgesture_tpu_torch.render.fgd_extractor import (
+        FGDAutoencoder, FGDExtractorConfig, train_fgd_extractor)
+    from qpgesture_tpu_torch.train.train_resync import ResyncTrainer
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ResyncTrainer(ResyncConfig(), n_mfcc=5, n_joints=9, num_frames=32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Discriminator(14, 32)
+    fgd_cfg = FGDExtractorConfig(channels=3, window=16, width=4, latent=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FGDAutoencoder(fgd_cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_fgd_extractor(np.zeros((2, 16, 3), np.float32), fgd_cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GestureKNNEngine(GestureKNNData(
+            feat=np.zeros((1, 16, 5), np.float32),
+            motion=np.zeros((1, 16, 2), np.float32),
+            control_mask=np.ones((1, 16)), n_aud=2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SphinxMFCC()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["train-resync", "--data", missing])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["train-fgd", "--data", missing, "--out", missing])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["evaluate", "--generated", missing, "--reference", missing])
     # one GPU: a data-parallel mesh asks for what is not ported
     with pytest.raises(NotImplementedError, match="not ported yet"):
         VQVAETrainer(VQVAEConfig(width=8, emb_width=8, l_bins=8, depth=1),
                      TrainConfig(mesh_shape=(2,)), device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        ResyncTrainer(ResyncConfig(), 5, 9, 32, mesh_shape=(2, 2),
+                      device="cpu")
 
     # generate: every input it reads before the first device is resolved
     from test_torch_rawwav import _write_generate_inputs

@@ -108,9 +108,11 @@ def test_checkpoint_layouts_and_round_trip(tmp_path):
         assert not loaded.training
         with torch.no_grad():
             assert torch.equal(loaded(x), want), name
+    # a directory is read as a train-resync output: an orbax directory of
+    # the JAX trainer raises, naming the file it lacks and what it holds
     orbax = tmp_path / "orbax_dir"
-    orbax.mkdir()
-    with pytest.raises(NotImplementedError, match="train-resync"):
+    (orbax / "latest").mkdir(parents=True)
+    with pytest.raises(FileNotFoundError, match=r"latest\.pt.*'latest'"):
         load_resync_checkpoint(str(orbax), device="cpu")
 
 
