@@ -79,7 +79,20 @@ counts set to 0 just before it and read just after:
                wavvq --resync and resync-apply from the train-resync
                directory (K1) against the CPU port; train-fgd and evaluate
                (the trained extractor and phase 17's VQ-VAE) card against
-               CPU; the batched MFCC on phase 15's recordings.
+               CPU; the batched MFCC on phase 15's recordings;
+  phase 19     the rest of the single-GPU surface: a VQ-VAE training step
+               at the shipped width and batch 256 at conv_precision
+               "highest", "default" (bfloat16 operands) and "high"
+               (bf16x3), times and shares of the peak, one step of each
+               low precision card against CPU; phase 15's windows encoded
+               at each precision (agreement with "highest"), a wavvq
+               request served through K1 from the "default" codes against
+               the CPU port, levels=2 encode / decode, a flax-layout
+               .msgpack VQ-VAE through decode --checkpoint; SimpleVQVAE and
+               Seq2SeqNet at full width, card against CPU, step times;
+               build-db --dataset trinity in both modes on a synthetic
+               GENEA-layout split and the store's windows gathered on the
+               card; render/analytics on the "default" codes.
 
 It prints one line per check. The last three lines are the card's name and
 power limit, one JSON object with every kernel's launches, error and
@@ -194,6 +207,33 @@ RESYNC_GRAD_RTOL = 3e-2
 # float32 encoders in other summation orders, relative (beyond the JSON's
 # rounding to 4 decimals)
 FGD_RTOL = 1e-3
+# phase 19: the VQ-VAE and SimpleVQVAE steps' batch (TrainConfig's), the
+# batch of their card-vs-CPU checks, the synthetic clips the step's batch is
+# drawn from; Seq2SeqNet at the seq2seq configuration of Yoon et al.'s
+# trimodal gesture code (config/seq2seq.yml: hidden 200, 2 layers, word
+# embedding 300, 34 poses of 27 with 4 teacher-forced, dropout 0.1, batch
+# 128; a 30 000-word vocabulary, sentences of up to 16 words); its eval
+# outputs card vs CPU (cuDNN's GRU against the CPU's over 33 autoregressive
+# steps of O(1) poses); the Trinity split (GENEA 2020 has 23 training
+# recordings of ~10 minutes: cut to 2, and 1 for validation)
+P19_BATCH, P19_CHECK_BATCH, P19_CLIPS = 256, 8, 8
+SEQ2SEQ = dict(vocab=30000, embed=300, hidden=200, pose=27, frames=34, pre=4,
+               layers=2, dropout=0.1)
+SEQ2SEQ_BATCH, SEQ2SEQ_WORDS = 128, 16
+SEQ2SEQ_ATOL = 1e-4
+# "default" (bfloat16 operands) card against CPU: the same rounding, but a
+# float32 activation that differs in its last bit between the two (other
+# summation orders) can round its bfloat16 operand the other way (2^-8 of
+# it), and 20+ layers carry such flips into the latents, the codes' distance
+# gaps (relative, as check_code_flips measures them) and the gradients (on
+# an H100 one step's differed by 1.5e-2 per tensor norm at batch 8; "high"'s
+# split has no such flip and is held as "highest" is). An error in the path
+# gives O(1)
+DEFAULT_CODE_GAP_RTOL = 1e-2
+DEFAULT_LOSS_RTOL = 5e-3
+DEFAULT_GRAD_RTOL = 0.1
+DEFAULT_POSE_RTOL = 2e-2
+TRINITY_TRAIN, TRINITY_VAL, TRINITY_MINUTES = 2, 1, 10.0
 # the batched MFCC: cuFFT against pocketfft, float32 products; log-mel
 # values reach ~15. The host oracle is float64 (the JAX package's test of
 # its device MFCC holds 2e-3)
@@ -1382,29 +1422,41 @@ def circular_err(got, want):
     return np.minimum(d, 1 - d)
 
 
-def check_codes(name: str, vq_gpu, norm, got, want) -> None:
-    """VQ codes of the card against the CPU port's. Where they differ, the
-    two candidates' squared distances from the card's latent are compared:
-    a flip is accepted only between candidates whose distances differ by
-    float32 rounding (relative to the terms the distance sums)."""
+def check_codes(name: str, vq_gpu, norm, got, want,
+                tol: float = CODE_GAP_RTOL) -> None:
+    """VQ codes of the card against the CPU port's (check_code_flips), the
+    latent of window n from the card's encoder."""
     import numpy as np
     import torch
+
+    def latent(n):
+        with torch.no_grad():
+            return vq_gpu.encoders[0](torch.as_tensor(
+                norm[n:n + 1].astype(np.float32), device=vq_gpu.device))[0]
+    check_code_flips(name, latent, vq_gpu.codebook, got, want, tol)
+
+
+def check_code_flips(name: str, latent, codebook, got, want,
+                     tol: float = CODE_GAP_RTOL) -> None:
+    """Codes of the card against the CPU port's. Where they differ, the
+    two candidates' squared distances from the card's latent (``latent(n)``
+    of window n, (T, D)) are compared: a flip is accepted only between
+    candidates whose distances differ by float32 rounding (relative to the
+    terms the distance sums; ``tol``)."""
+    import numpy as np
     diff = np.argwhere(got != want)
     gaps = []
+    k = codebook.double().cpu().numpy()
     for n, t in diff:
-        with torch.no_grad():
-            h = vq_gpu.encoders[0](torch.as_tensor(
-                norm[n:n + 1].astype(np.float32), device=vq_gpu.device))
-        x = h[0, t].double().cpu().numpy()
-        k = vq_gpu.codebook.double().cpu().numpy()
+        x = latent(n)[t].double().cpu().numpy()
         a, b = k[got[n, t]], k[want[n, t]]
         da, db = ((x - a) ** 2).sum(), ((x - b) ** 2).sum()
         scale = (x ** 2).sum() + max((a ** 2).sum(), (b ** 2).sum())
         gaps.append(abs(da - db) / scale)
         log(f"{name} code differs at window {n} slot {t}: card "
             f"{got[n, t]} vs CPU {want[n, t]}, distance gap {da - db:+.3e} "
-            f"(relative {gaps[-1]:.3e}, tol {CODE_GAP_RTOL})")
-    if gaps and max(gaps) > CODE_GAP_RTOL:
+            f"(relative {gaps[-1]:.3e}, tol {tol})")
+    if gaps and max(gaps) > tol:
         raise SystemExit(f"{name}: card codes differ from the CPU port's by "
                          f"more than float32 rounding")
     log(f"{name} codes: {got.size - len(diff)}/{got.size} equal to "
@@ -2408,7 +2460,8 @@ def rel_err(card, cpu) -> float:
         float(cpu.abs().max()), 1e-30)
 
 
-def time_trainer(name: str, step, windows: int, n: int = TRAIN_TIMED_STEPS):
+def time_trainer(name: str, step, windows: int, n: int = TRAIN_TIMED_STEPS,
+                 phase: str = "phase 17"):
     """Step ms from CUDA events around n steps after 3 warm-up steps,
     windows/s, peak memory of those steps, and a profile of 3 steps (device
     busy, idle share, top kernels)."""
@@ -2432,10 +2485,10 @@ def time_trainer(name: str, step, windows: int, n: int = TRAIN_TIMED_STEPS):
             step()
         torch.cuda.synchronize()
 
-    log(f"phase 17 {name}: step_ms={step_ms:.3f} over {n} steps (CUDA "
+    log(f"{phase} {name}: step_ms={step_ms:.3f} over {n} steps (CUDA "
         f"events) = {1e3 * windows / step_ms:.1f} windows/s at batch "
         f"{windows}; peak max_memory_allocated {peak:.3f} GiB")
-    log_profile(f"phase 17 {name} 3 steps", three)
+    log_profile(f"{phase} {name} 3 steps", three)
     return step_ms
 
 
@@ -2987,32 +3040,13 @@ def phase18_resync_data(built, tmp: str):
 def resync_flops(trainer, knn, real, eps) -> tuple:
     """(D step, G step) floating-point operations of the trainer's
     convolutions and products, counted over one step of each (forward,
-    backward and the penalty's double backward) by a dispatch mode that
-    applies torch's own per-operator formulas (torch.utils.flop_counter's
-    registry; FlopCounterMode itself tracks modules with hooks that the
-    penalty's autograd.grad on a leaf input refuses). The counted steps
-    update the weights: the caller passes a trainer of its own."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-    from torch.utils.flop_counter import flop_registry
-
-    class Count(TorchDispatchMode):
-        flops = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            kwargs = kwargs or {}
-            out = func(*args, **kwargs)
-            formula = flop_registry.get(func._overloadpacket)
-            if formula is not None:
-                self.flops += formula(*args, **kwargs, out_val=out)
-            return out
-
-    counts = []
-    for step in (lambda: trainer.d_step(knn, real, eps),
-                 lambda: trainer.g_step(knn, real)):
-        with Count() as counter:
-            step()
-        counts.append(counter.flops)
-    return tuple(counts)
+    backward and the penalty's double backward) by utils/devtime's
+    dispatch mode over torch's flop formulas (FlopCounterMode's module
+    hooks refuse the penalty's autograd.grad on a leaf input). The counted
+    steps update the weights: the caller passes a trainer of its own."""
+    from qpgesture_tpu_torch.utils.devtime import cost_analysis_flops
+    return (cost_analysis_flops(lambda: trainer.d_step(knn, real, eps))[0],
+            cost_analysis_flops(lambda: trainer.g_step(knn, real))[0])
 
 
 def resync_float64_grads(trainer, x_knn, x_real, eps):
@@ -3429,6 +3463,491 @@ def phase18_mfcc(dev, built):
         raise SystemExit("batched MFCC on the card differs")
 
 
+# -- phase 19: the rest of the single-GPU surface --------------------------
+
+def phase19_vqvae_steps(dev, rng):
+    """A training step at the shipped VQVAEConfig and batch P19_BATCH x 240
+    at each conv_precision ("highest" beside "default" and "high", the same
+    seeded weights), its time, windows/s, idle share, peak memory and share
+    of the peak for its operand type (utils/devtime); one step at
+    P19_CHECK_BATCH card against the CPU port from the same state at
+    "default" and "high"; a step under sync debug "error"."""
+    import numpy as np
+    import torch
+    from qpgesture_tpu_torch.core.config import TrainConfig, VQVAEConfig
+    from qpgesture_tpu_torch.train.data import DeviceClipStore
+    from qpgesture_tpu_torch.train.train_vqvae import VQVAETrainer
+    from qpgesture_tpu_torch.utils.devtime import (cost_analysis_flops, mfu,
+                                                   peak_flops_per_s)
+
+    clips = training_clips(rng, P19_CLIPS, TRAIN_CLIP_FRAMES)
+    flat = np.concatenate([c["poses"] for c in clips])
+    store = DeviceClipStore(clips, 240, 32, flat.mean(0), flat.std(0),
+                            device=dev)
+    x = next(iter(store.batches(P19_BATCH, seed=0)))
+    tcfg = TrainConfig(batch_size=P19_BATCH)
+    out = {}
+    for precision in ("highest", "default", "high"):
+        cfg = VQVAEConfig(conv_precision=precision)
+        trainer = VQVAETrainer(cfg, tcfg, device=dev, seed=0)
+        trainer.init_codebook(x)
+        trainer.train_step(x)
+        if precision != "highest":
+            step_without_sync(lambda: trainer.train_step(x))
+        flops = cost_analysis_flops(lambda: trainer.train_step(x))[0]
+        ms = time_trainer(f"VQ-VAE conv_precision={precision!r} (batch "
+                          f"{P19_BATCH} x 240 frames)",
+                          lambda: trainer.train_step(x), P19_BATCH,
+                          phase="phase 19")
+        dtype = "float32" if precision == "highest" else "bfloat16"
+        name, peak = peak_flops_per_s(dtype) if dev.type == "cuda" \
+            else ("cpu", 0.0)
+        share = mfu(flops, ms / 1e3, peak)
+        out[precision] = ms
+        log(f"phase 19 VQ-VAE {precision!r}: {flops / 1e12:.4f} TFLOP "
+            f"counted a step (bf16x3 counts its three products), "
+            f"{flops / ms / 1e9:.2f} TFLOP/s = "
+            f"{'n/a' if share is None else f'{100 * share:.1f} %'} of "
+            f"{name}'s {dtype} peak ({peak / 1e12:.0f} TFLOP/s, NVIDIA's "
+            f"H100 SXM data sheet)")
+        del trainer
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    log(f"phase 19 VQ-VAE step ms at batch {P19_BATCH}: highest "
+        f"{out['highest']:.3f}, default {out['default']:.3f} (x"
+        f"{out['highest'] / out['default']:.2f}), high {out['high']:.3f} "
+        f"(x{out['highest'] / out['high']:.2f})")
+
+    # card against CPU from the same state: the codebook drawn on the card
+    # from the P19_BATCH windows (more latents than codes)
+    xb = x[:P19_CHECK_BATCH].cpu()
+    for precision in ("default", "high"):
+        cfg = VQVAEConfig(conv_precision=precision)
+        tcfg8 = TrainConfig(batch_size=P19_CHECK_BATCH)
+        card = VQVAETrainer(cfg, tcfg8, device=dev, seed=1)
+        card.init_codebook(x)
+        cpu = VQVAETrainer(cfg, tcfg8, device="cpu", seed=1)
+        cpu.load_state_dict(card.state_dict())
+        default = precision == "default"
+        check_codes(f"phase 19 VQ-VAE {precision!r} step batch", card.model,
+                    xb.numpy(), card.model.encode(xb.to(dev)).cpu().numpy(),
+                    cpu.model.encode(xb).numpy(),
+                    DEFAULT_CODE_GAP_RTOL if default else CODE_GAP_RTOL)
+        t0 = time.time()
+        loss_cpu, _ = cpu.train_step(xb)
+        t_cpu = time.time() - t0
+        loss_card, _ = card.train_step(xb.to(dev))
+        loss_err = abs(float(loss_card) - float(loss_cpu)) / float(loss_cpu)
+        g_err = grad_err(card.model, cpu.model)
+        loss_tol = DEFAULT_LOSS_RTOL if default else TRAIN_LOSS_RTOL
+        grad_tol = DEFAULT_GRAD_RTOL if default else TRAIN_GRAD_RTOL
+        log(f"phase 19 VQ-VAE {precision!r} step card vs CPU port (full "
+            f"width, batch {P19_CHECK_BATCH}): loss rel {loss_err:.3e} (tol "
+            f"{loss_tol}), gradients {g_err[0]:.3e} (tol {grad_tol}; largest "
+            f"element {g_err[1]:.3e}); CPU step {t_cpu:.1f} s")
+        if loss_err > loss_tol or g_err[0] > grad_tol:
+            raise SystemExit(f"VQ-VAE {precision!r} step: card differs from "
+                             "CPU")
+        del cpu, card
+    return out
+
+
+def phase19_vqvae_serve(dev, built, tmp: str):
+    """Phase 15's VQ-VAE at each conv_precision: encode of phase 15's
+    windows (code agreement with "highest", reported), the "default" codes
+    against the CPU port's "default"; a wavvq request staged from phase
+    15's test split, served through K1 from the train split's "default"
+    codes and signature, against the CPU port; levels=2 encode / decode;
+    the "default" model through a flax-layout .msgpack file and decode
+    --checkpoint on the card. Returns the "default" codes and signature."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+    import yaml
+    from qpgesture_tpu_torch.cli import main as cli
+    from qpgesture_tpu_torch.core.config import MATCH_PRESETS, VQVAEConfig
+    from qpgesture_tpu_torch.core.schemas import CodebookSignature
+    from qpgesture_tpu_torch.match.database import (stage_database,
+                                                    stage_test_audio,
+                                                    stage_test_context)
+    from qpgesture_tpu_torch.match.engine import CodeKNNEngine
+    from qpgesture_tpu_torch.models.convert import vqvae_state_dict_to_jax
+    from qpgesture_tpu_torch.models.vqvae import (VQVAE, codebook_signature,
+                                                  load_vqvae_native)
+    from qpgesture_tpu_torch.ops import levenshtein_cuda as K1
+    from qpgesture_tpu_torch.pipelines import database_builder as builder
+    from qpgesture_tpu_torch.serve import ServingPipeline
+    from qpgesture_tpu_torch.utils import flax_msgpack
+    p = lambda *names: os.path.join(tmp, *names)
+
+    mean, std = built["mean"], built["std"]
+    sd = built["vq_cpu"].state_dict()
+    models = {}
+    for precision in ("highest", "default", "high"):
+        m = VQVAE(VQVAEConfig(conv_precision=precision), device=dev)
+        m.load_state_dict(sd)
+        models[precision] = m
+    bodies = {s: built["bundles"][s].body for s in ("train", "test")}
+    allb = np.concatenate([bodies["train"], bodies["test"]])
+    codes = {}
+    for precision, m in models.items():
+        t0 = time.perf_counter()
+        codes[precision] = builder.encode_windows(m, allb, mean, std)
+        log(f"phase 19 encode_windows {precision!r}: {allb.shape[0]} "
+            f"windows in {1e3 * (time.perf_counter() - t0):.1f} ms (host in, "
+            f"host out); codes equal to \"highest\"'s "
+            f"{(codes[precision] == codes['highest']).mean():.4f} of "
+            f"{codes[precision].size}")
+    vq_cpu_default = VQVAE(VQVAEConfig(conv_precision="default"),
+                           device="cpu")
+    vq_cpu_default.load_state_dict(sd)
+    norm = (allb - mean) / np.clip(std, 0.01, None)
+    check_codes("phase 19 encode_windows 'default'", models["default"], norm,
+                codes["default"],
+                builder.encode_windows(vq_cpu_default, allb, mean, std),
+                DEFAULT_CODE_GAP_RTOL)
+
+    # a wavvq request through K1 from the "default" codes
+    n_train = len(bodies["train"])
+    code, poses, sig = codebook_signature(models["default"], mean, std)
+    signature = CodebookSignature(code=code, poses=poses, signature=sig)
+    cfg = dc.replace(MATCH_PRESETS["wavvq"], codebook_size=sig.shape[0])
+    db = stage_database(cfg, built["bundles"]["train"],
+                        codes["default"][:n_train], signature,
+                        wavvq=built["wavvq"]["train"])
+    test = built["bundles"]["test"]
+    audio = stage_test_audio(cfg, db, wavvq=built["wavvq"]["test"][:W])
+    ctx = stage_test_context(db, test.context[:W])
+    before = K1.launches
+    got, got_poses = ServingPipeline(
+        CodeKNNEngine(cfg, db, device=dev), models["default"], mean,
+        std).serve(audio, ctx, init_code=0,
+                   rng=np.random.RandomState(cfg.seed))
+    n1 = K1.launches - before
+    want, want_poses = ServingPipeline(
+        CodeKNNEngine(cfg, db, device="cpu"), vq_cpu_default, mean,
+        std).serve(audio, ctx, init_code=0,
+                   rng=np.random.RandomState(cfg.seed))
+    pose_err = float(np.abs(got_poses - want_poses).max())
+    pose_tol = DEFAULT_POSE_RTOL * float(np.abs(want_poses).max())
+    log(f"phase 19 wavvq request on the \"default\" codes (J={n_train}, "
+        f"{W} windows): K1 launches {n1}; codes == the CPU port's "
+        f"{np.array_equal(got, want)}; \"default\" decode card vs CPU "
+        f"{pose_err:.3e} (tol {pose_tol:.3e}: {DEFAULT_POSE_RTOL} of the "
+        f"largest pose value)")
+    if (dev.type == "cuda" and n1 < 1) or not np.array_equal(got, want) or \
+            pose_err > pose_tol or \
+            not np.isfinite(got_poses).all():
+        raise SystemExit("phase 19: the \"default\" wavvq request failed")
+
+    # levels = 2
+    l2 = VQVAEConfig(levels=2, downs_t=(3, 1), strides_t=(2, 2),
+                     hvqvae_multipliers=(1, 1))
+    torch.manual_seed(SEED)
+    l2_cpu = VQVAE(l2, device="cpu")
+    l2_cpu.init_codebook_from_batch(torch.as_tensor(
+        norm.astype(np.float32)), np.random.RandomState(SEED))
+    l2_card = VQVAE(l2, device=dev)
+    l2_card.load_state_dict(l2_cpu.state_dict())
+    c2 = builder.encode_windows(l2_card, allb, mean, std)
+    check_codes("phase 19 levels=2 encode", l2_card, norm, c2,
+                builder.encode_windows(l2_cpu, allb, mean, std))
+    y2 = l2_card.decode(torch.as_tensor(c2, device=dev)).cpu().numpy()
+    y2_err = float(np.abs(y2 - l2_cpu.decode(torch.as_tensor(c2)).numpy()
+                          ).max())
+    try:
+        l2_card(torch.as_tensor(norm[:2].astype(np.float32), device=dev))
+        raise SystemExit("levels=2 training forward did not raise")
+    except ValueError as e:
+        reason = str(e)
+    log(f"phase 19 levels=2 (downs_t (3, 1)): encode {c2.shape}, decode "
+        f"{y2.shape} card vs CPU {y2_err:.3e}; training forward refused: "
+        f"{reason}")
+    if c2.shape != (allb.shape[0], 15) or y2.shape != (allb.shape[0], 120,
+                                                       135) or \
+            y2_err > POSE_ATOL:
+        raise SystemExit("phase 19: levels=2 encode / decode")
+
+    # the JAX package's .msgpack file, written by this script
+    tree = vqvae_state_dict_to_jax(models["default"].state_dict(),
+                                   models["default"].cfg)
+    flax_msgpack.save(p("p19_vqvae.msgpack"), tree)
+    torch.save({"model_dict": models["default"].state_dict()},
+               p("p19_vqvae.bin"))
+    with open(p("p19.yml"), "w") as f:
+        yaml.safe_dump({"VQVAE": {"conv_precision": "default"},
+                        "data_mean": mean.tolist(),
+                        "data_std": std.tolist()}, f)
+    with open(p("p19_pipeline.json"), "w") as f:
+        f.write(built["pipeline"].to_json())
+    np.savez(p("p19_result.npz"), knn_pred=got)
+    outs = {}
+    for kind in ("msgpack", "bin"):
+        cli(["decode", "--result", p("p19_result.npz"), "--checkpoint",
+             p(f"p19_vqvae.{kind}"), "--config", p("p19.yml"),
+             "--pipeline", p("p19_pipeline.json"), "--out", p(f"p19_{kind}"),
+             "--prefix", "p19", "--device", str(dev)])
+        with open(p(f"p19_{kind}", "p19_generated.bvh"), "rb") as f:
+            outs[kind] = f.read()
+    native = load_vqvae_native(p("p19_vqvae.msgpack"), models["default"].cfg,
+                               device=dev)
+    codes_t = torch.as_tensor(got, device=dev)
+    same = torch.equal(native.decode(codes_t),
+                       models["default"].decode(codes_t))
+    log(f"phase 19 .msgpack ({os.path.getsize(p('p19_vqvae.msgpack'))} "
+        f"bytes, flax layout): decode from the file == decode from the "
+        f"state_dict {same}; decode --checkpoint x.msgpack BVH == from the "
+        f".bin {outs['msgpack'] == outs['bin']}")
+    if not same or outs["msgpack"] != outs["bin"]:
+        raise SystemExit("phase 19: the .msgpack VQ-VAE decodes otherwise")
+    return codes["default"], sig, n1
+
+
+def phase19_simple_vqvae(dev, rng):
+    """SimpleVQVAE at VQVAEConfig's widths: forward(train=True) and its
+    gradient at P19_BATCH x 240 (ms, windows/s, idle share); card against
+    the CPU port at P19_CHECK_BATCH (codes, loss, gradients)."""
+    import numpy as np
+    import torch
+    from qpgesture_tpu_torch.core.config import VQVAEConfig
+    from qpgesture_tpu_torch.device import cudnn_autotune
+    from qpgesture_tpu_torch.models import bottleneck as bn
+    from qpgesture_tpu_torch.models.simple_vqvae import SimpleVQVAE
+
+    cfg = VQVAEConfig()
+    x = torch.as_tensor(np.stack([c["poses"][:240] for c in training_clips(
+        rng, P19_BATCH, 240)]))
+    torch.manual_seed(SEED)
+    card = SimpleVQVAE(cfg, device=dev)
+    with torch.no_grad():
+        h = card.encoder(x.to(dev))
+    card.bottleneck.level_blocks[0].set_state(*bn.init_codebook(
+        h.reshape(-1, cfg.emb_width), cfg.l_bins,
+        torch.Generator(dev).manual_seed(SEED)))
+    cpu = SimpleVQVAE(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    xb = x[:P19_CHECK_BATCH]
+    codes_cpu, codes_card = cpu.encode(xb), card.encode(xb.to(dev)).cpu()
+    _, loss_cpu, _ = cpu(xb)
+    loss_cpu.backward()
+    _, loss_card, _ = card(xb.to(dev))
+    loss_card.backward()
+    loss_err = abs(loss_card.item() - loss_cpu.item()) / loss_cpu.item()
+    g_err = grad_err(card, cpu)
+    n_params = sum(q.numel() for q in card.parameters())
+    log(f"phase 19 SimpleVQVAE ({n_params} parameters) card vs CPU port at "
+        f"batch {P19_CHECK_BATCH}: loss rel {loss_err:.3e} (tol "
+        f"{TRAIN_LOSS_RTOL}), gradients {g_err[0]:.3e} (tol "
+        f"{TRAIN_GRAD_RTOL})")
+    with torch.no_grad():
+        h = card.encoder(xb.to(dev))
+    check_code_flips("phase 19 SimpleVQVAE encode", lambda n: h[n],
+                     card.codebook, codes_card.numpy(), codes_cpu.numpy())
+    if loss_err > TRAIN_LOSS_RTOL or g_err[0] > TRAIN_GRAD_RTOL:
+        raise SystemExit("phase 19: SimpleVQVAE card differs from CPU")
+    del cpu
+    card.train()
+    xd = x.to(dev)
+    gen = torch.Generator(dev).manual_seed(SEED)
+
+    def step():
+        # the trainers' setting: cuDNN times its algorithms for each conv
+        # shape (its heuristic takes FFT convs here, ~9x slower on an H100)
+        with cudnn_autotune():
+            card.zero_grad(set_to_none=True)
+            card(xd, train=True, generator=gen)[1].backward()
+
+    ms = median_ms(step, TRAIN_TIMED_STEPS)
+    log(f"phase 19 SimpleVQVAE forward(train=True) + backward at batch "
+        f"{P19_BATCH} x 240 under cudnn_autotune: {ms:.3f} ms (CUDA events, "
+        f"median of {TRAIN_TIMED_STEPS}) = {1e3 * P19_BATCH / ms:.1f} "
+        f"windows/s")
+    log_profile("phase 19 SimpleVQVAE step", lambda: (step(), sync(dev)))
+    return ms
+
+
+def sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase19_seq2seq(dev, rng):
+    """Seq2SeqNet at the seq2seq configuration of Yoon et al.'s trimodal
+    gesture code (SEQ2SEQ): eval forward and a train-mode forward with its
+    gradient at SEQ2SEQ_BATCH (ms and idle share: the decoder is a host
+    loop of 33 steps); card against the CPU port (eval outputs, and at
+    dropout 0 the train-mode gradients and BatchNorm statistics)."""
+    import copy as copy_
+
+    import numpy as np
+    import torch
+    from qpgesture_tpu_torch.models.seq2seq import Seq2SeqNet
+
+    s = SEQ2SEQ
+    torch.manual_seed(SEED)
+    cpu = Seq2SeqNet(s["vocab"], s["embed"], s["hidden"], s["pose"],
+                     s["frames"], s["pre"], s["layers"], s["dropout"],
+                     device="cpu")
+    card = copy_.deepcopy(cpu).to(dev)
+    B = SEQ2SEQ_BATCH
+    lengths = rng.randint(2, SEQ2SEQ_WORDS + 1, B)
+    tokens = rng.randint(1, s["vocab"], (B, SEQ2SEQ_WORDS))
+    for b, n in enumerate(lengths):
+        tokens[b, n:] = 0
+    tokens = torch.as_tensor(tokens)
+    poses = torch.as_tensor(rng.randn(B, s["frames"], s["pose"]).astype(
+        np.float32))
+    tok_d, poses_d = tokens.to(dev), poses.to(dev)
+    with torch.no_grad():
+        want = cpu(tokens, lengths, poses)
+        got = card(tok_d, lengths, poses_d).cpu()
+    err = float((got - want).abs().max())
+    # train mode at dropout 0, so that both devices compute the same step
+    for m in (cpu, card):
+        m.train()
+        m.encoder.dropout = m.decoder.decoder.dropout_p = 0.0
+        m(tok_d if m is card else tokens, lengths,
+          poses_d if m is card else poses).pow(2).mean().backward()
+    # the Linear in front of the training-mode BatchNorm: gradient 0
+    # analytically, rounding noise on both devices
+    g_err = grad_err(card, cpu, zero_grad=("decoder.decoder.pre_linear.0."
+                                           "bias",))
+    st_err = bn_stats_err(card, cpu)
+    n_params = sum(q.numel() for q in card.parameters())
+    log(f"phase 19 Seq2SeqNet ({n_params} parameters: vocab {s['vocab']}, "
+        f"embed {s['embed']}, hidden {s['hidden']}, {s['layers']} layers, "
+        f"{s['frames']} poses of {s['pose']} with {s['pre']} teacher-forced)"
+        f" at batch {B}: eval card vs CPU {err:.3e} (tol {SEQ2SEQ_ATOL}); "
+        f"train mode (dropout 0) gradients {g_err[0]:.3e} (tol "
+        f"{TRAIN_GRAD_RTOL}), BatchNorm statistics {st_err:.3e} (tol "
+        f"{TRAIN_STATS_RTOL})")
+    if err > SEQ2SEQ_ATOL or g_err[0] > TRAIN_GRAD_RTOL or \
+            st_err > TRAIN_STATS_RTOL:
+        raise SystemExit("phase 19: Seq2SeqNet card differs from CPU")
+    del cpu
+    card.encoder.dropout = card.decoder.decoder.dropout_p = s["dropout"]
+    gen = torch.Generator(dev).manual_seed(SEED)
+
+    def train_step():
+        card.zero_grad(set_to_none=True)
+        card(tok_d, lengths, poses_d, generator=gen).pow(2).mean().backward()
+
+    def eval_fwd():
+        with torch.no_grad():
+            card(tok_d, lengths, poses_d)
+
+    card.eval()
+    eval_ms = median_ms(eval_fwd, 10)
+    log_profile("phase 19 Seq2SeqNet eval forward", lambda: (eval_fwd(),
+                                                             sync(dev)))
+    card.train()
+    train_ms = median_ms(train_step, 10)
+    log_profile("phase 19 Seq2SeqNet train forward + backward",
+                lambda: (train_step(), sync(dev)))
+    log(f"phase 19 Seq2SeqNet at batch {B}: eval forward {eval_ms:.3f} ms, "
+        f"train forward + backward {train_ms:.3f} ms (CUDA events, median "
+        f"of 10; host in the loop)")
+    return eval_ms, train_ms
+
+
+def write_trinity_split(base: str, rng, n_recs: int, minutes: float,
+                        first: int) -> None:
+    """A Trinity-layout split: Motion/*.bvh (the BEAT-like skeleton at 120
+    fps, smooth motion), Audio/*.wav (16 kHz speech-like), Transcripts/
+    *.json (GENEA's Google-Speech layout, ~2.5 words a second)."""
+    import json
+
+    import numpy as np
+    from qpgesture_tpu_torch.pipelines.audio_prep import write_wav
+    vocab = ("so the idea is that we move our hands when we speak and this "
+             "gesture follows the rhythm of the voice").split()
+    for d in ("Motion", "Audio", "Transcripts"):
+        os.makedirs(os.path.join(base, d), exist_ok=True)
+    for i in range(n_recs):
+        name = f"Recording_{first + i:03d}"
+        seconds = 60.0 * minutes
+        with open(os.path.join(base, "Motion", name + ".bvh"), "w") as f:
+            f.write(skeleton_bvh_text(rng, int(seconds * 120), 120,
+                                      smooth=True))
+        write_wav(os.path.join(base, "Audio", name + ".wav"),
+                  speech_like(rng, seconds), 16000)
+        t, words = 0.0, []
+        while t < seconds - 1:
+            d = rng.uniform(0.15, 0.6)
+            words.append({"start_time": f"{t:.3f}s",
+                          "end_time": f"{t + d:.3f}s",
+                          "word": str(rng.choice(vocab))})
+            t += d + rng.uniform(0.02, 0.3)
+        with open(os.path.join(base, "Transcripts", name + ".json"),
+                  "w") as f:
+            json.dump([{"alternatives": [{"words": words}]}], f)
+
+
+def phase19_trinity(dev, rng, tmp: str):
+    """build-db --dataset trinity in both modes on a synthetic split
+    (TRINITY_TRAIN recordings of TRINITY_MINUTES + TRINITY_VAL), host wall
+    per recording; the rotation store's windows (train/data.py) gathered by
+    DeviceClipStore on the card equal to the host windows."""
+    import numpy as np
+    from qpgesture_tpu_torch.cli import main as cli
+    from qpgesture_tpu_torch.pipelines.trinity import load_trinity_store
+    from qpgesture_tpu_torch.train.data import (DeviceClipStore,
+                                                WindowedDataset)
+    p = lambda *names: os.path.join(tmp, *names)
+    t0 = time.time()
+    write_trinity_split(p("trn"), rng, TRINITY_TRAIN, TRINITY_MINUTES, 0)
+    write_trinity_split(p("val"), rng, TRINITY_VAL, TRINITY_MINUTES,
+                        TRINITY_TRAIN)
+    n_recs = TRINITY_TRAIN + TRINITY_VAL
+    log(f"phase 19 Trinity split written: {TRINITY_TRAIN} + {TRINITY_VAL} "
+        f"recordings of {TRINITY_MINUTES} min (BVH at 120 fps, 16 kHz wav, "
+        f"GENEA JSON); {time.time() - t0:.1f} s")
+    for mode in ("rotation", "position"):
+        t0 = time.time()
+        cli(["build-db", "--dataset", "trinity", "--trn-path", p("trn"),
+             "--val-path", p("val"), "--mode", mode, "--out",
+             p(f"trinity_{mode}"), "--device", str(dev)])
+        wall = time.time() - t0
+        clips = load_trinity_store(p(f"trinity_{mode}", "lmdb_train"))
+        stats = np.load(p(f"trinity_{mode}", "stats.npz"))
+        log(f"phase 19 build-db --dataset trinity --mode {mode}: {wall:.1f} "
+            f"s = {wall / n_recs:.1f} s a recording (host wall); train store "
+            f"{len(clips)} clips of {clips[0]['poses'].shape}, "
+            f"{len(clips[0]['words'])} words, audio "
+            f"{clips[0]['audio'].shape}; stats {stats['mean'].shape}")
+        want = 2 * TRINITY_TRAIN if mode == "rotation" else TRINITY_TRAIN
+        if len(clips) != want or not all(np.isfinite(c["poses"]).all()
+                                         for c in clips):
+            raise SystemExit(f"phase 19: Trinity {mode} store")
+        if mode == "rotation":
+            mean, std = stats["mean"], stats["std"]
+            poses = [{"poses": c["poses"]} for c in clips]
+            host_ds = WindowedDataset.from_clips(poses, 240, 32,
+                                                 data_mean=mean, data_std=std)
+            b = min(64, len(host_ds))
+            store = DeviceClipStore(poses, 240, 32, mean, std, device=dev)
+            got = next(iter(store.batches(b, seed=0))).cpu().numpy()
+            host = next(iter(host_ds.batches(b, seed=0)))
+            log(f"phase 19 Trinity rotation windows: DeviceClipStore batch "
+                f"{got.shape} == the host batch {np.array_equal(got, host)}")
+            if not np.array_equal(got, host):
+                raise SystemExit("phase 19: Trinity windows differ")
+
+
+def phase19_analytics(codes, signature) -> None:
+    from qpgesture_tpu_torch.render.analytics import (code_frequency,
+                                                      signature_pca)
+    top = code_frequency(codes, top=5)
+    pca = signature_pca(signature, 2)
+    log(f"phase 19 analytics of the \"default\" codes: top codes {top}; "
+        f"signature PCA {pca.shape}; plot and generate --video are held on "
+        f"the CPU (this machine has no matplotlib)")
+    if pca.shape != (signature.shape[0], 2) or not top:
+        raise SystemExit("phase 19: analytics")
+
+
 def load_wav(path: str):
     from qpgesture_tpu_torch.pipelines.audio_prep import load_wav_16k
     return load_wav_16k(path)
@@ -3786,8 +4305,27 @@ def main() -> int:
         if not k1:
             raise SystemExit("phase 18 did not launch K1")
         k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
+        torch.cuda.empty_cache()
+        phase_wall("phase 18")
+
+        # -- phase 19: the rest of the single-GPU surface ------------------
+        K1.launches = K2.launches = 0
+        phase19_vqvae_steps(dev, rng)
+        torch.cuda.empty_cache()
+        codes19, sig19, _ = phase19_vqvae_serve(dev, built, tmp)
+        phase19_analytics(codes19, sig19)
+        phase19_simple_vqvae(dev, rng)
+        torch.cuda.empty_cache()
+        phase19_seq2seq(dev, rng)
+        phase19_trinity(dev, rng, tmp)
+        k1, k2 = K1.launches, K2.launches
+        log(f"phase 19 launches: K1 {k1} (the wavvq request on the "
+            f"\"default\" codes), K2 {k2} (WavLM is not on this path)")
+        if not k1:
+            raise SystemExit("phase 19 did not launch K1")
+        k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
     del built
-    phase_wall("phase 18")
+    phase_wall("phase 19")
 
     # -- the kernels line and the result ------------------------------------
     kernels_line = {"kernels": [{

@@ -18,6 +18,7 @@ Subcommands mirror the reference package's entry points:
   train-resync   train_resync_gestureknn.py (WGAN-GP)         -> <out>/latest.pt
   train-fgd      the feature-space FGD extractor              -> checkpoint file
   evaluate       Hellinger + FGD between motion sets          -> one JSON line
+  plot           training curves, phase manifold, debug views -> PNG / video
 
 They take the reference package's flags; those that run a model also take
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch paths).
@@ -101,13 +102,13 @@ def cmd_match(args):
 
 
 def _load_vqvae(path: str, cfg, device):
-    """A reference torch checkpoint (.bin/.pt), or a train-vqvae output
+    """A reference torch checkpoint (.bin/.pt), the JAX package's msgpack
+    checkpoint (.msgpack, ``save_vqvae_native``), or a train-vqvae output
     directory (its best.pt)."""
+    if path.endswith(".msgpack"):
+        from .models.vqvae import load_vqvae_native
+        return load_vqvae_native(path, cfg, device=device)
     from .models.convert import load_vqvae_checkpoint
-    if not (os.path.isdir(path) or path.endswith((".bin", ".pt"))):
-        raise NotImplementedError(
-            "only reference torch checkpoints (.bin/.pt) and train-vqvae "
-            f"output directories are ported; got {path}")
     return load_vqvae_checkpoint(path, cfg, device=device)
 
 
@@ -267,8 +268,6 @@ def cmd_generate(args):
     from .motion.pipeline import MotionPipeline
     from .render.decode import render_result
 
-    if args.video:
-        raise NotImplementedError("generate --video is not ported yet")
     if args.wav.endswith(".npz"):
         wav = np.load(args.wav)["wav"].astype(np.float32).reshape(-1)
     else:
@@ -314,10 +313,10 @@ def cmd_generate(args):
         pose_transform = _make_resync_transform(
             args.resync, wav, bundle, resolve_device(args.device))
         print(f"applying ResyncNet from {args.resync}")
-    bvh_path, _ = render_result(codes, model, pipeline, args.out,
-                                args.prefix, data_mean=mean, data_std=std,
-                                smoothing=args.smooth,
-                                pose_transform=pose_transform)
+    bvh_path, npy_path = render_result(codes, model, pipeline, args.out,
+                                       args.prefix, data_mean=mean,
+                                       data_std=std, smoothing=args.smooth,
+                                       pose_transform=pose_transform)
     if args.model == "end2end":
         # the reference also keeps the sampled code string
         # (inference.py:96)
@@ -325,6 +324,11 @@ def cmd_generate(args):
         np.save(code_path, codes)
         print(f"wrote {code_path}")
     print(f"wrote {bvh_path}")
+    if args.video and npy_path:
+        from .render.visualize import render_positions
+        out = render_positions(np.load(npy_path),
+                               bvh_path.replace(".bvh", ".mp4"), codes=codes)
+        print(f"wrote {out}")
 
 
 def cmd_resync_apply(args):
@@ -561,10 +565,20 @@ def cmd_build_db(args):
     from .pipelines.transcripts import read_tab_transcript
     from .train.data import dataset_stats
 
-    if args.dataset == "trinity":
-        raise NotImplementedError("build-db --dataset trinity is not ported "
-                                  "yet")
     dev = resolve_device(args.device)
+    if args.dataset == "trinity":
+        from .pipelines.trinity import build_trinity_dataset
+        if not (args.trn_path and args.val_path):
+            raise SystemExit("--dataset trinity needs --trn-path and "
+                             "--val-path (each holding Motion/ Audio/ "
+                             "Transcripts/)")
+        os.makedirs(args.out, exist_ok=True)
+        paths = build_trinity_dataset(args.trn_path, args.val_path,
+                                      mode=args.mode, fps=args.fps,
+                                      out_dir=args.out, device=dev)
+        for k, v in paths.items():
+            print(f"wrote {k}: {v}")
+        return
     if not (args.bvh_dir and args.wav_dir):
         raise SystemExit("--bvh-dir and --wav-dir are required for the "
                          "BEAT builder (--dataset beat)")
@@ -1009,6 +1023,66 @@ def cmd_train_resync(args):
         print(f"saved {args.out}")
 
 
+def cmd_plot(args):
+    """Offline training plots (the reference's live matplotlib windows,
+    Library/Utility.py:21-75 + Plotting.py): loss/metric curves from a
+    scalars.jsonl history and/or a phase-manifold PCA from a Phase npz."""
+    from .core import constants as C
+    from .render.plots import (plot_phase_channels, plot_phase_manifold,
+                               plot_scalar_history, plot_wav_debug)
+
+    os.makedirs(args.out, exist_ok=True)
+    wrote = []
+    if args.history:
+        wrote.append(plot_scalar_history(
+            args.history, os.path.join(args.out, "scalars.png"),
+            tags=args.tags))
+    if args.phase:
+        from .core.schemas import _to_dense_phase
+        data = np.load(args.phase, allow_pickle=True)
+        key = "phase" if "phase" in data.files else data.files[0]
+        phase = _to_dense_phase(data[key])
+        if args.phase_debug:
+            # per-channel Phase2D_mono curves over random 32-frame
+            # windows (visualize_phase.py:64-83: one window, then a
+            # 3-window overlay)
+            seqs = phase if phase.ndim == 4 else phase[None]
+            rng = np.random.RandomState(args.seed)
+            win = min(32, seqs.shape[1])
+
+            def pick():
+                i = rng.randint(0, seqs.shape[0])
+                j = rng.randint(0, max(1, seqs.shape[1] - win + 1))
+                return seqs[i, j:j + win]
+            wrote.append(plot_phase_channels(
+                [pick()], os.path.join(args.out, "visualize_phase.png")))
+            wrote.append(plot_phase_channels(
+                [pick() for _ in range(3)],
+                os.path.join(args.out, "visualize_phase_3.png")))
+        flat = phase.reshape(-1, *phase.shape[-2:]) if phase.ndim == 4 \
+            else phase
+        wrote.append(plot_phase_manifold(
+            flat, os.path.join(args.out, "phase_manifold.png")))
+    if args.wav:
+        if args.wav.endswith(".npz"):
+            wav = np.load(args.wav)["wav"].astype(np.float32).reshape(-1)
+        else:
+            from .pipelines.audio_prep import load_wav_16k
+            wav = load_wav_16k(args.wav)
+        wrote.append(plot_wav_debug(
+            wav, C.SR, os.path.join(args.out, "wav_debug.png")))
+    if args.merge_figs:
+        from .render.plots import merge_frames
+        wrote.append(merge_frames(
+            args.merge_figs, os.path.join(args.out, "merged_figs.mp4"),
+            count=args.count, fps=args.fps))
+    if not wrote:
+        raise SystemExit("pass --history, --phase, --wav and/or "
+                         "--merge-figs")
+    for w in wrote:
+        print(f"wrote {w}")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="qpgesture_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -1093,7 +1167,9 @@ def main(argv=None):
     g.add_argument("--prefix", default="generated")
     g.add_argument("--smooth", action="store_true")
     g.add_argument("--video", action="store_true",
-                   help="not ported yet")
+                   help="also render a stick-figure video of the motion "
+                        "(mp4 with ffmpeg, else GIF, else PNG frames; "
+                        "needs matplotlib)")
     g.add_argument("--resync", metavar="CKPT",
                    help="apply a trained ResyncNet to the decoded motion "
                         "(reference best_model.pth or a train-resync "
@@ -1205,15 +1281,18 @@ def main(argv=None):
     bd = sub.add_parser("build-db", help="build a speaker database from "
                         "(BVH, wav, transcript) recordings")
     bd.add_argument("--dataset", default="beat", choices=["beat", "trinity"],
-                    help="'trinity' is not ported yet")
+                    help="'trinity' = Trinity/GENEA2020 training-store "
+                         "builder (trinity_data_to_lmdb.py equivalent; "
+                         "uses --trn-path/--val-path/--mode)")
     bd.add_argument("--bvh-dir")
     bd.add_argument("--wav-dir")
     bd.add_argument("--transcript-dir")
-    bd.add_argument("--trn-path", help="trinity: not ported yet")
-    bd.add_argument("--val-path", help="trinity: not ported yet")
+    bd.add_argument("--trn-path", help="trinity: training split dir "
+                                       "(Motion/ Audio/ Transcripts/)")
+    bd.add_argument("--val-path", help="trinity: test split dir")
     bd.add_argument("--mode", default="rotation",
                     choices=["rotation", "position"],
-                    help="trinity: not ported yet")
+                    help="trinity: pose parameterization")
     bd.add_argument("--out", required=True)
     bd.add_argument("--prefix", default="speaker")
     bd.add_argument("--fps", type=int, default=60)
@@ -1289,6 +1368,30 @@ def main(argv=None):
     te.add_argument("--device", default="cuda",
                     help="torch device (default cuda; raises without a GPU)")
     te.set_defaults(fn=cmd_train_end2end)
+
+    pl = sub.add_parser("plot", help="training curves / phase-manifold / "
+                        "phase+audio debug PNGs")
+    pl.add_argument("--history", help="scalars.jsonl path")
+    pl.add_argument("--phase", help="Phase npz (dense or object format)")
+    pl.add_argument("--phase-debug", action="store_true",
+                    help="also render per-channel Phase2D_mono curve "
+                         "grids over random 32-frame windows "
+                         "(visualize_phase.py:34-83)")
+    pl.add_argument("--wav", help="wav/npz for time+frequency-domain "
+                    "debug views (visualize_phase.py:13-31)")
+    pl.add_argument("--seed", type=int, default=0,
+                    help="window picker seed for --phase-debug")
+    pl.add_argument("--tags", nargs="*")
+    pl.add_argument("--merge-figs", metavar="PATTERN",
+                    help="stitch a numbered image sequence into a video "
+                         "(merge_figs.py:5-15); format string with one "
+                         "{} slot, e.g. 'figs/{}.jpg'")
+    pl.add_argument("--count", type=int, default=20,
+                    help="frame count for --merge-figs")
+    pl.add_argument("--fps", type=int, default=30,
+                    help="frame rate for --merge-figs")
+    pl.add_argument("--out", default="./plots")
+    pl.set_defaults(fn=cmd_plot)
 
     ev = sub.add_parser("evaluate",
                         help="Hellinger + FGD between motion sets")

@@ -40,7 +40,7 @@ class VQVAEConfig:
     vqvae_reverse_decoder_dilation: bool = True
     input_dim: int = C.POSE_DIM
     # "highest" = true f32 (checkpoint parity); "default" = bf16 multiplies
-    # with f32 accumulate (TPU training speed point).
+    # with f32 accumulate; "high" = bf16x3 (models/encdec.py).
     conv_precision: str = "highest"
     # Opt-in activation checkpointing of the residual conv blocks
     # (nn.remat): trades recompute for activation memory, matching the

@@ -76,18 +76,22 @@ def vqvae_state_dict_from_jax(params: Dict, cb,
     reference's) VQVAE state_dict, as CPU float32 tensors. A codebook that
     also has ``k_sum``/``k_elem`` (a JAX ``CodebookState``, as a train state
     holds it) adds them under EMA_KEYS, so a JAX train state moves into the
-    port with its EMA statistics."""
+    port with its EMA statistics. Encoder level l (the JAX package's
+    ``encoder/level{l}``) goes to ``encoders.0.level_blocks.{l}``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for level in range(cfg.levels):
+        down_t = cfg.downs_t[level]
+        depth = cfg.depth * cfg.hvqvae_multipliers[level]
+        enc = params["encoder"][f"level{level}"]
+        enc_base = f"encoders.0.level_blocks.{level}"
+        for i in range(down_t):
+            _conv1d(enc[f"down{i}_conv"], f"{enc_base}.model.{i}.0", sd)
+            _resnet(enc[f"down{i}_resnet"], f"{enc_base}.model.{i}.1",
+                    depth, sd)
+        _conv1d(enc["proj"], f"{enc_base}.model.{down_t}", sd)
+
     down_t = cfg.downs_t[0]
     depth = cfg.depth * cfg.hvqvae_multipliers[0]
-    sd: Dict[str, torch.Tensor] = {}
-
-    enc = params["encoder"]["level0"]
-    enc_base = "encoders.0.level_blocks.0"
-    for i in range(down_t):
-        _conv1d(enc[f"down{i}_conv"], f"{enc_base}.model.{i}.0", sd)
-        _resnet(enc[f"down{i}_resnet"], f"{enc_base}.model.{i}.1", depth, sd)
-    _conv1d(enc["proj"], f"{enc_base}.model.{down_t}", sd)
-
     dec = params["decoder"]["level0"]
     dec_base = "decoders.0.level_blocks.0"
     _conv1d(dec["proj"], f"{dec_base}.model.0", sd)
@@ -106,9 +110,86 @@ def vqvae_state_dict_from_jax(params: Dict, cb,
     return sd
 
 
+def vqvae_state_dict_to_jax(sd: Dict[str, torch.Tensor],
+                            cfg: VQVAEConfig) -> Dict:
+    """The inverse of ``vqvae_state_dict_from_jax``: the port's VQVAE
+    state_dict -> the JAX package's ``{"params", "codebook"}`` tree, the
+    layout of its ``save_vqvae_native`` files (numpy float32 leaves)."""
+    def resnet(key, depth):
+        return {f"block{d}": {
+            "conv1": _conv1d_to_jax(sd, f"{key}.model.{d}.model.1"),
+            "conv2": _conv1d_to_jax(sd, f"{key}.model.{d}.model.3")}
+            for d in range(depth)}
+
+    encoder = {}
+    for level in range(cfg.levels):
+        down_t = cfg.downs_t[level]
+        depth = cfg.depth * cfg.hvqvae_multipliers[level]
+        base = f"encoders.0.level_blocks.{level}"
+        enc = {}
+        for i in range(down_t):
+            enc[f"down{i}_conv"] = _conv1d_to_jax(sd, f"{base}.model.{i}.0")
+            enc[f"down{i}_resnet"] = resnet(f"{base}.model.{i}.1", depth)
+        enc["proj"] = _conv1d_to_jax(sd, f"{base}.model.{down_t}")
+        encoder[f"level{level}"] = enc
+    down_t = cfg.downs_t[0]
+    depth = cfg.depth * cfg.hvqvae_multipliers[0]
+    base = "decoders.0.level_blocks.0"
+    dec = {"proj": _conv1d_to_jax(sd, f"{base}.model.0")}
+    for i in range(down_t):
+        dec[f"up{i}_resnet"] = resnet(f"{base}.model.{i + 1}.0", depth)
+        dec[f"up{i}_convt"] = _conv_transpose1d_to_jax(
+            sd, f"{base}.model.{i + 1}.1")
+    codebook = {"k": _np(sd["bottleneck.level_blocks.0.k"])}
+    for key, name in zip(EMA_KEYS, ("k_sum", "k_elem")):
+        if key in sd:
+            codebook[name] = _np(sd[key])
+    return {"params": {"encoder": encoder,
+                       "decoder": {"level0": dec,
+                                   "out": _conv1d_to_jax(sd,
+                                                         "decoders.0.out")}},
+            "codebook": codebook}
+
+
 def _dense(p: Dict, key: str, out: Dict) -> None:
     out[f"{key}.weight"] = _t(np.asarray(p["kernel"]).T)
     out[f"{key}.bias"] = _t(p["bias"])
+
+
+def simple_vqvae_state_dict_from_jax(params: Dict, cb
+                                     ) -> Dict[str, torch.Tensor]:
+    """The JAX package's SimpleVQVAE params (``{"encoder", "decoder"}``) and
+    codebook -> the port's ``models/simple_vqvae.SimpleVQVAE`` state_dict.
+    flax's OptimizedLSTMCell holds an input kernel per gate (``ii``, ``if``,
+    ``ig``, ``io``) and a hidden kernel with the gate's one bias (``hi``,
+    ...): torch's ``weight_ih_l0`` / ``weight_hh_l0`` stack them in the gate
+    order i, f, g, o, ``bias_ih_l0`` takes the bias and ``bias_hh_l0`` is
+    0."""
+    enc, dec = params["encoder"], params["decoder"]
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("conv0", "conv1", "conv2"):
+        _conv1d(enc[name], f"encoder.{name}", sd)
+    lstm = enc["lstm"]
+    gates = "ifgo"
+    sd["encoder.lstm.weight_ih_l0"] = _t(np.concatenate(
+        [np.asarray(lstm[f"i{g}"]["kernel"]).T for g in gates]))
+    sd["encoder.lstm.weight_hh_l0"] = _t(np.concatenate(
+        [np.asarray(lstm[f"h{g}"]["kernel"]).T for g in gates]))
+    sd["encoder.lstm.bias_ih_l0"] = _t(np.concatenate(
+        [np.asarray(lstm[f"h{g}"]["bias"]) for g in gates]))
+    sd["encoder.lstm.bias_hh_l0"] = torch.zeros_like(
+        sd["encoder.lstm.bias_ih_l0"])
+    _dense(enc["proj"], "encoder.proj", sd)
+    for name in ("conv_in", "conv_out"):
+        _conv1d(dec[name], f"decoder.{name}", sd)
+    for name in ("up0", "up1", "up2"):
+        _conv_transpose1d(dec[name], f"decoder.{name}", sd)
+    sd["bottleneck.level_blocks.0.k"] = _t(cb.k)
+    for key, name in zip(EMA_KEYS, ("k_sum", "k_elem")):
+        value = getattr(cb, name, None)
+        if value is not None:
+            sd[key] = _t(value)
+    return sd
 
 
 def _layer_norm(p: Dict, key: str, out: Dict) -> None:
@@ -177,6 +258,14 @@ def _conv1d_to_jax(sd: Dict, key: str) -> Dict:
             .numpy()}
 
 
+def _conv_transpose1d_to_jax(sd: Dict, key: str) -> Dict:
+    """ConvTranspose1d (in, out, k) -> the JAX kernel (k, in, out), flipped
+    in time."""
+    return {"kernel": np.ascontiguousarray(
+        _np(sd[f"{key}.weight"]).transpose(2, 0, 1)[::-1]),
+        "bias": _np(sd[f"{key}.bias"])}
+
+
 def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
@@ -242,10 +331,7 @@ def fgd_state_dict_to_jax(sd: Dict[str, torch.Tensor], cfg) -> Dict:
     params: Dict = {}
     for i in range(cfg.conv_layers):
         params[f"enc{i}"] = _conv1d_to_jax(sd, f"enc{i}")
-        params[f"dec{i}"] = {
-            "kernel": np.ascontiguousarray(
-                _np(sd[f"dec{i}.weight"]).transpose(2, 0, 1)[::-1]),
-            "bias": _np(sd[f"dec{i}.bias"])}
+        params[f"dec{i}"] = _conv_transpose1d_to_jax(sd, f"dec{i}")
     for name in ("to_latent", "from_latent"):
         params[name] = {"kernel": _np(sd[f"{name}.weight"]).T,
                         "bias": _np(sd[f"{name}.bias"])}
@@ -268,14 +354,43 @@ def generator_gru_state_dict_from_jax(variables: Dict, layers: int = 2
     _conv1d(enc["conv4"], "WavEncoder.feat_extractor.12", sd)
     for layer in range(layers):
         for direction, suffix in (("f", ""), ("b", "_reverse")):
-            g = params[f"gru{layer}_{direction}"]
-            for name in ("ih", "hh"):
-                sd[f"project.weight_{name}_l{layer}{suffix}"] = _t(
-                    np.asarray(g[f"w_{name}"]).T)
-                sd[f"project.bias_{name}_l{layer}{suffix}"] = _t(
-                    g[f"b_{name}"])
+            _gru_cell(params[f"gru{layer}_{direction}"], "project",
+                      f"_l{layer}{suffix}", sd)
     _layer_norm(params["norm"], "norm", sd)
     _dense(params["out"], "out", sd)
+    return sd
+
+
+def _gru_cell(g: Dict, key: str, suffix: str, out: Dict) -> None:
+    """A JAX TorchGRUCell (w_ih (in, 3H), w_hh, b_ih, b_hh) -> one layer /
+    direction of a torch nn.GRU."""
+    for name in ("ih", "hh"):
+        out[f"{key}.weight_{name}{suffix}"] = _t(np.asarray(g[f"w_{name}"]).T)
+        out[f"{key}.bias_{name}{suffix}"] = _t(g[f"b_{name}"])
+
+
+def seq2seq_state_dict_from_jax(variables: Dict, n_layers: int = 1
+                                ) -> Dict[str, torch.Tensor]:
+    """The JAX package's Seq2SeqNet variables ({"params", "batch_stats"})
+    -> the port's (and the reference's) Seq2SeqNet state_dict: the inverse
+    of ``convert_seq2seq``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    enc, dec = params["encoder"], params["decoder"]
+    sd: Dict[str, torch.Tensor] = {
+        "encoder.embedding.weight": _t(enc["embedding"]["embedding"])}
+    for layer in range(n_layers):
+        _gru_cell(enc[f"gru{layer}_f"], "encoder.gru", f"_l{layer}", sd)
+        _gru_cell(enc[f"gru{layer}_b"], "encoder.gru", f"_l{layer}_reverse",
+                  sd)
+    key = "decoder.decoder"
+    _dense(dec["attn"]["attn"], f"{key}.attn.attn", sd)
+    sd[f"{key}.attn.v"] = _t(dec["attn"]["v"])
+    _dense(dec["pre_linear"], f"{key}.pre_linear.0", sd)
+    _batchnorm(dec["pre_bn"], stats["decoder"]["pre_bn"],
+               f"{key}.pre_linear.1", sd)
+    for layer in range(n_layers):
+        _gru_cell(dec[f"gru{layer}"], f"{key}.gru", f"_l{layer}", sd)
+    _dense(dec["out"], f"{key}.out", sd)
     return sd
 
 

@@ -8,7 +8,12 @@ codebook), as one nn.Module whose state_dict keys are the reference's:
 reconstruction + commit + velocity L1 + acceleration L1 + optional
 smoothness regularizer) and, in training, the in-place EMA update of the
 codebook; ``encode``/``decode``/``codebook_signature`` are inference. Public
-methods take and return NTC tensors.
+methods take and return NTC tensors. ``VQVAEConfig.conv_precision`` sets
+the precision of every conv (``models/encdec``). With ``levels > 1``,
+``encode`` quantises the deepest level and ``decode`` runs the level-0
+decoder, as the JAX package does; the training forward then raises, since
+the level-0 decoder's output is not the input's length (the JAX
+package's ``VQVAE.forward`` fails on the same shapes).
 """
 from __future__ import annotations
 
@@ -79,6 +84,14 @@ class VQVAE(nn.Module):
         takes its EMA step in place (dead codes restart from rows drawn
         with ``generator``)."""
         cfg = self.cfg
+        if cfg.levels > 1:
+            hop0 = cfg.strides_t[0] ** cfg.downs_t[0]
+            n_codes = x.shape[1] // cfg.hop_length
+            raise ValueError(
+                f"levels={cfg.levels}: the training forward decodes with "
+                f"the level-0 decoder, which gives {n_codes * hop0} frames "
+                f"from the {n_codes} codes of a {x.shape[1]}-frame window, "
+                f"not {x.shape[1]}; only encode and decode run at levels > 1")
         h = self.encoders[0](x)
         _, x_d, commit_loss, metrics = self.codebook_block(
             h, mu=cfg.l_mu, train=train, generator=generator)
@@ -121,6 +134,26 @@ def eval_pose_error(x: torch.Tensor, x_out: torch.Tensor,
     b, t, c = x.shape
     diff = (x - x_out).reshape(b, t, c // joint_channel, joint_channel)
     return torch.sqrt((diff ** 2).sum(3)).mean()
+
+
+def load_vqvae_native(path: str, cfg: VQVAEConfig,
+                      device: DeviceLike = "cuda") -> VQVAE:
+    """A VQ-VAE from the JAX package's single-file msgpack checkpoint
+    (``save_vqvae_native``: ``{"params", "codebook": {k, k_sum, k_elem}}``),
+    EMA statistics included."""
+    from types import SimpleNamespace
+
+    from ..utils import flax_msgpack
+    from .convert import vqvae_state_dict_from_jax
+    tree = flax_msgpack.load(path)
+    if not (isinstance(tree, dict) and {"params", "codebook"} <= set(tree)):
+        raise ValueError(f"{path}: not a VQ-VAE msgpack checkpoint (its top "
+                         "level has no 'params' and 'codebook')")
+    sd = vqvae_state_dict_from_jax(tree["params"],
+                                   SimpleNamespace(**tree["codebook"]), cfg)
+    model = VQVAE(cfg, device=device)
+    model.load_state_dict(sd)
+    return model
 
 
 def codebook_signature(model: VQVAE, data_mean: Optional[np.ndarray] = None,

@@ -34,6 +34,48 @@ def downsample(data: BVHData, tgt_fps: int) -> BVHData:
     return out
 
 
+def slice_windows(tracks: List[np.ndarray], window_size: int,
+                  overlap: float = 0.5) -> np.ndarray:
+    """Equal-size overlapping windows over per-track channel matrices
+    (Slicer, preprocessing.py:658-692): overlap_frames = int(overlap *
+    window_size); window i starts at (window_size - overlap_frames) * i;
+    tracks shorter than one window contribute nothing. Returns
+    (n_windows, window_size, channels)."""
+    out = []
+    channels = None
+    for vals in tracks:
+        vals = np.asarray(vals)
+        channels = vals.shape[1]
+        overlap_frames = int(overlap * window_size)
+        step = window_size - overlap_frames
+        n_seq = (vals.shape[0] - overlap_frames) // step
+        for i in range(max(n_seq, 0)):
+            out.append(vals[step * i:step * i + window_size])
+    if not out:
+        return np.zeros((0, window_size, channels or 0))
+    return np.array(out)
+
+
+class ListStandardScaler:
+    """Z-score normalization fitted over a LIST of variable-length tracks
+    (ListStandardScaler, preprocessing.py:982-1027): stats over the
+    concatenated frames, applied per track; inverse_transform restores."""
+
+    def fit(self, tracks: List[np.ndarray]) -> "ListStandardScaler":
+        flat = np.concatenate([np.asarray(t) for t in tracks], axis=0)
+        self.data_mean_ = flat.mean(axis=0)
+        self.data_std_ = flat.std(axis=0)
+        return self
+
+    def transform(self, tracks: List[np.ndarray]) -> np.ndarray:
+        return np.array([(np.asarray(t) - self.data_mean_) / self.data_std_
+                         for t in tracks])
+
+    def inverse_transform(self, tracks: List[np.ndarray]) -> np.ndarray:
+        return np.array([np.asarray(t) * self.data_std_ + self.data_mean_
+                         for t in tracks])
+
+
 def root_center(data: BVHData) -> BVHData:
     """'hip_centric': zero the root position and rotation channels
     (RootTransformer, preprocessing.py:765-789)."""

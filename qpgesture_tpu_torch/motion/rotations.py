@@ -56,6 +56,41 @@ def matrix_to_euler_zxy(mat: np.ndarray, degrees: bool = True) -> np.ndarray:
     return np.degrees(out) if degrees else out
 
 
+def euler_to_expmap(euler: np.ndarray, order: str = "ZXY",
+                    degrees: bool = True) -> np.ndarray:
+    """(..., 3) euler -> exponential map (rotation vector), the
+    parameterization of the GENEA 'BA' pipeline variant
+    (process/pymo/rotation_tools.py:22-61, MocapParameterizer('expmap'))."""
+    from scipy.spatial.transform import Rotation as R
+    e = np.asarray(euler, dtype=np.float64).reshape(-1, 3)
+    rv = R.from_euler(order, e, degrees=degrees).as_rotvec()
+    return rv.reshape(np.asarray(euler).shape)
+
+
+def expmap_to_euler(expmap: np.ndarray, order: str = "ZXY",
+                    degrees: bool = True) -> np.ndarray:
+    from scipy.spatial.transform import Rotation as R
+    v = np.asarray(expmap, dtype=np.float64).reshape(-1, 3)
+    e = R.from_rotvec(v).as_euler(order, degrees=degrees)
+    return e.reshape(np.asarray(expmap).shape)
+
+
+def unroll_expmap(rotvecs: np.ndarray) -> np.ndarray:
+    """Fix discontinuous rotation vectors over time by flipping to the
+    2pi-complement representation when it is closer to the previous frame
+    (fix_rotvec, process/pymo/preprocessing.py:61-86 semantics)."""
+    out = np.asarray(rotvecs, dtype=np.float64).copy()
+    for t in range(1, out.shape[0]):
+        ang = np.linalg.norm(out[t])
+        if ang == 0:
+            continue
+        alt = out[t] / ang * (ang - 2 * np.pi)
+        if np.linalg.norm(alt - out[t - 1]) < np.linalg.norm(
+                out[t] - out[t - 1]):
+            out[t] = alt
+    return out
+
+
 def poses_to_matrices(euler_frames: np.ndarray, degrees: bool = True
                       ) -> np.ndarray:
     """(T, J*3) euler ZXY channel values -> (T, J*9) flattened rotation

@@ -61,3 +61,52 @@ def matmul_bf16x3(a: torch.Tensor, b) -> torch.Tensor:
     a_hi, a_lo = split_bf16(a)
     b_hi, b_lo = split_bf16(b) if isinstance(b, torch.Tensor) else b
     return mm_f32(a_hi, b_hi) + (mm_f32(a_hi, b_lo) + mm_f32(a_lo, b_hi))
+
+
+def split_operands(x: torch.Tensor, precision: str):
+    """The bfloat16 operand(s) of x: (hi,) at "default", (hi, lo) at
+    "high"."""
+    return (x.to(torch.bfloat16),) if precision == "default" \
+        else split_bf16(x)
+
+
+def product_f32(a, b) -> torch.Tensor:
+    """Sum of the products of two splits with float32 sums and output: one
+    product of (hi,) operands, bf16x3's three of (hi, lo) operands."""
+    if len(a) == 1:
+        return mm_f32(a[0], b[0])
+    return mm_f32(a[0], b[0]) + (mm_f32(a[0], b[1]) + mm_f32(a[1], b[0]))
+
+
+class _LowPrecisionMatmul(torch.autograd.Function):
+    """a @ b at "default" or "high" whose backward products run at the same
+    precision (JAX's VJP of a dot or a conv keeps its precision): da =
+    g @ b^T and db = a^T @ g, g rounded as the operands are. The bfloat16
+    operands are what is saved for the backward pass."""
+
+    @staticmethod
+    def forward(ctx, a, b, precision):
+        ctx.precision = precision
+        sa, sb = split_operands(a, precision), split_operands(b, precision)
+        ctx.save_for_backward(*sa, *sb)
+        ctx.n = len(sa)
+        return product_f32(sa, sb)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved, n = ctx.saved_tensors, ctx.n
+        sa, sb = saved[:n], saved[n:]
+        sg = split_operands(g.contiguous(), ctx.precision)
+        da = product_f32(sg, [t.t() for t in sb]) \
+            if ctx.needs_input_grad[0] else None
+        db = product_f32([t.t() for t in sa], sg) \
+            if ctx.needs_input_grad[1] else None
+        return da, db, None
+
+
+def matmul_lp(a: torch.Tensor, b: torch.Tensor,
+              precision: str) -> torch.Tensor:
+    """float32 (M, K) @ (K, N) at ``precision``: "default" rounds both
+    operands to bfloat16, "high" is bf16x3, each with float32 sums and
+    output and a gradient whose products are rounded the same way."""
+    return _LowPrecisionMatmul.apply(a, b, precision)

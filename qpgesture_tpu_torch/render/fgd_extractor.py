@@ -24,8 +24,8 @@ flip). The parameter names mirror flax's (``enc{i}``, ``to_latent``,
 
 A checkpoint is a 4-byte little-endian length, the JSON config, then the
 port's payload: ``torch.save`` of the state_dict and the normalization
-stats. The JAX package writes flax msgpack there, which the port cannot
-read; ``load_fgd_extractor`` says so.
+stats. The JAX package writes flax msgpack there; ``load_fgd_extractor``
+reads both (``utils/flax_msgpack``).
 """
 from __future__ import annotations
 
@@ -172,23 +172,26 @@ def save_fgd_extractor(path: str, model: FGDAutoencoder,
 
 
 def load_fgd_extractor(path: str, device: DeviceLike = "cuda"):
-    """-> (model in eval mode on ``device``, mean, std)."""
+    """-> (model in eval mode on ``device``, mean, std). Reads the port's
+    file (a ``torch.save`` payload after the config header) and the JAX
+    package's (flax msgpack of ``{"params", "mean", "std"}`` after the same
+    header)."""
     with open(path, "rb") as f:
         hlen = int.from_bytes(f.read(4), "little")
         cfg = FGDExtractorConfig(**json.loads(f.read(hlen)))
         payload = f.read()
-    if not payload.startswith(b"PK\x03\x04"):       # torch.save's zip
-        raise ValueError(
-            f"{path}: the payload after the config header is not a torch.save "
-            "archive; a file of the JAX package's train-fgd holds flax "
-            "msgpack, which the port does not read: retrain with the port's "
-            "train-fgd, or carry the weights across with "
-            "models/convert.fgd_state_dict_from_jax")
-    state = torch.load(io.BytesIO(payload), map_location="cpu",
-                       weights_only=True)
     model = FGDAutoencoder(cfg, device=device)
-    model.load_state_dict(state["params"])
-    return model.eval(), state["mean"].numpy(), state["std"].numpy()
+    if payload.startswith(b"PK\x03\x04"):          # torch.save's zip
+        state = torch.load(io.BytesIO(payload), map_location="cpu",
+                           weights_only=True)
+        model.load_state_dict(state["params"])
+        return model.eval(), state["mean"].numpy(), state["std"].numpy()
+    from ..models.convert import fgd_state_dict_from_jax
+    from ..utils import flax_msgpack
+    state = flax_msgpack.unpack(payload)
+    model.load_state_dict(fgd_state_dict_from_jax(state["params"], cfg))
+    return (model.eval(), np.asarray(state["mean"], np.float32),
+            np.asarray(state["std"], np.float32))
 
 
 def fgd_encoder_fn(model: FGDAutoencoder, mean: np.ndarray, std: np.ndarray

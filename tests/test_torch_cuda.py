@@ -450,10 +450,10 @@ def _grad_err(card_model, cpu_model, zero_grad=()):
     return worst
 
 
-def _vqvae_trainers(cuda):
+def _vqvae_trainers(cuda, **kw):
     from qpgesture_tpu_torch.core.config import TrainConfig, VQVAEConfig
     from qpgesture_tpu_torch.train.train_vqvae import VQVAETrainer
-    cfg = VQVAEConfig(width=128, emb_width=128, l_bins=64, depth=2)
+    cfg = VQVAEConfig(width=128, emb_width=128, l_bins=64, depth=2, **kw)
     tcfg = TrainConfig(batch_size=8)
     batch = torch.from_numpy((0.5 * np.random.RandomState(18).randn(
         8, 240, 135)).astype(np.float32))
@@ -664,3 +664,110 @@ def test_rawpose_batch_on_card_matches_cpu_and_solo(cuda):
     for c in range(4):
         np.testing.assert_array_equal(got[c], card.search_motion(
             test[c], int(seqs[c]), int(frms[c]), int(ks[c])))
+
+
+@pytest.mark.parametrize("precision", ["default", "high"])
+def test_precision_convs_on_card_match_cpu(cuda, precision):
+    """The "default" / "high" convs as cuBLAS GEMMs with float32 output on
+    the card against the CPU's widened products: the same rounded operands,
+    other summation orders (1e-5 of the output's size), forward and both
+    gradients."""
+    from qpgesture_tpu_torch.models.encdec import Conv1d, ConvTranspose1d
+    for make in (lambda: Conv1d(64, 48, 3, 1, 3, 3, precision=precision),
+                 lambda: ConvTranspose1d(64, 48, 4, 2, 1,
+                                         precision=precision)):
+        torch.manual_seed(30)
+        cpu = make()
+        card = make().to(cuda)
+        card.load_state_dict(cpu.state_dict())
+        x = torch.randn(4, 64, 60, requires_grad=True)
+        xc = x.detach().to(cuda).requires_grad_()
+        y, yc = cpu(x), card(xc)
+        assert float((yc.cpu() - y).abs().max()) <= 1e-5 * float(
+            y.abs().max())
+        g = torch.randn_like(y)
+        y.backward(g)
+        yc.backward(g.to(cuda))
+        for a, b in ((xc.grad, x.grad), (card.weight.grad, cpu.weight.grad)):
+            assert float((a.cpu() - b).abs().max()) <= 1e-5 * float(
+                b.abs().max())
+
+
+# "default" card against CPU: the same bfloat16 rounding, but a float32
+# activation one ulp apart between the two can round its operand the other
+# way (2^-8 of it), and the layers carry such flips into the loss and the
+# gradients (2-3e-2 per tensor norm for one step on an H100; an error in the
+# step gives O(1)). "high"'s split carries no such flip.
+DEFAULT_LOSS_RTOL, DEFAULT_GRAD_RTOL = 5e-3, 0.1
+
+
+@pytest.mark.parametrize("precision", ["default", "high"])
+def test_vqvae_train_step_at_precision_on_card_matches_cpu(cuda, precision):
+    """One VQ-VAE step at conv_precision "default" / "high", card against
+    CPU from the same state and batch: "high" as "highest" is held (codes
+    equal, loss 1e-5 relative, gradients GRAD_NORM_RTOL), "default" within
+    DEFAULT_LOSS_RTOL / DEFAULT_GRAD_RTOL; no host sync in the step."""
+    cpu, card, batch = _vqvae_trainers(cuda, conv_precision=precision)
+    default = precision == "default"
+    if not default:
+        assert torch.equal(card.model.encode(batch.to(cuda)).cpu(),
+                           cpu.model.encode(batch))
+    loss_cpu, _ = cpu.train_step(batch)
+    loss_card, _ = card.train_step(batch.to(cuda))
+    assert abs(float(loss_card) - float(loss_cpu)) <= \
+        (DEFAULT_LOSS_RTOL if default else 1e-5) * float(loss_cpu)
+    assert _grad_err(card.model, cpu.model) <= \
+        (DEFAULT_GRAD_RTOL if default else GRAD_NORM_RTOL)
+    x = batch.to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        card.train_step(x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_simple_vqvae_and_seq2seq_on_card_match_cpu(cuda):
+    """SimpleVQVAE (cuDNN LSTM) codes equal and decode 1e-5; Seq2SeqNet's
+    eval forward (packed cuDNN GRUs, per-step decoder) within 1e-5."""
+    from qpgesture_tpu_torch.core.config import VQVAEConfig
+    from qpgesture_tpu_torch.models.seq2seq import Seq2SeqNet
+    from qpgesture_tpu_torch.models.simple_vqvae import SimpleVQVAE
+    torch.manual_seed(31)
+    cpu = SimpleVQVAE(VQVAEConfig(), device="cpu")
+    cpu.bottleneck.level_blocks[0].set_state(torch.randn(512, 512) * 0.05)
+    card = SimpleVQVAE(VQVAEConfig(), device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(8, 240, 135)
+    codes = cpu.encode(x)
+    assert torch.equal(card.encode(x.to(cuda)).cpu(), codes)
+    assert float((card.decode(codes.to(cuda)).cpu() - cpu.decode(codes)
+                  ).abs().max()) <= 1e-5
+    cpu = Seq2SeqNet(300, 32, 64, 27, 34, 4, 2, device="cpu")
+    card = Seq2SeqNet(300, 32, 64, 27, 34, 4, 2, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(31)
+    lengths = np.array([12, 3, 7, 12])
+    tokens = torch.from_numpy(rng.randint(1, 300, (4, 12)))
+    poses = torch.from_numpy(rng.randn(4, 34, 27).astype(np.float32))
+    with torch.no_grad():
+        want = cpu(tokens, lengths, poses)
+        got = card(tokens.to(cuda), lengths, poses.to(cuda)).cpu()
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+def test_device_timing_on_card(cuda):
+    """device_seconds_per_iter through a CUDA graph and eagerly agree on a
+    GEMM within 30 %; chained steps time; the launch floor is positive."""
+    from qpgesture_tpu_torch.utils import devtime
+    a = torch.randn(2048, 2048, device=cuda)
+    graphed, _ = devtime.device_seconds_per_iter(lambda x: x @ x, (a,),
+                                                 graph=True)
+    eager, _ = devtime.device_seconds_per_iter(lambda x: x @ x, (a,))
+    assert graphed > 0 and abs(graphed - eager) <= 0.3 * eager
+    chained, _ = devtime.chained_seconds_per_iter(
+        lambda c, w: (torch.tanh(c @ w),), a, (a,))
+    assert chained > 0
+    assert devtime.measure_link_s() > 0
+    assert devtime.peak_flops_per_s("bfloat16")[0] == \
+        torch.cuda.get_device_name()

@@ -178,7 +178,7 @@ def test_checkpoint_round_trip_and_jax_file(tmp_path):
     np.testing.assert_array_equal(got, fgd_encoder_fn(model, mean, std)(
         probe))
     # the same 4-byte length + JSON header as the JAX package's file; its
-    # flax msgpack payload is refused with a message saying what it is
+    # flax msgpack payload loads into the same model and stats
     jax_path = str(tmp_path / "fgd.msgpack")
     jax_save_fgd(jax_path, JaxFGDConfig(channels=CH, window=WIN,
                                         width=WIDTH, latent=8),
@@ -186,8 +186,12 @@ def test_checkpoint_round_trip_and_jax_file(tmp_path):
     with open(jax_path, "rb") as f, open(path, "rb") as g:
         n = int.from_bytes(f.read(4), "little")
         assert g.read(4 + n)[4:] == f.read(n)
-    with pytest.raises(ValueError, match="msgpack"):
-        load_fgd_extractor(jax_path, device="cpu")
+    from_jax, mean3, std3 = load_fgd_extractor(jax_path, device="cpu")
+    assert from_jax.cfg == cfg and not from_jax.training
+    np.testing.assert_array_equal(mean3, mean)
+    np.testing.assert_array_equal(std3, std)
+    np.testing.assert_array_equal(fgd_encoder_fn(from_jax, mean3, std3)(
+        probe), fgd_encoder_fn(model, mean, std)(probe))
 
 
 def _run(cli, argv):

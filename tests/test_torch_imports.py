@@ -36,16 +36,20 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
               "train.checkpoints", "train.train_vqvae", "train.train_pae",
               "train.train_end2end", "utils.metrics_log",
               "train.train_resync", "render.metrics", "render.fgd_extractor",
-              "match.gesture_knn", "match.control", "motion.features"):
+              "match.gesture_knn", "match.control", "motion.features",
+              "utils.flax_msgpack", "models.simple_vqvae", "models.seq2seq",
+              "pipelines.trinity", "render.analytics", "render.plots",
+              "render.visualize", "utils.devtime", "utils.profiling"):
         assert f"qpgesture_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k in ('jax', 'flax',"
-        " 'jaxlib', 'optax', 'orbax', 'qpgesture_tpu') or k.startswith(("
-        "'jax.', 'flax.', 'jaxlib.', 'optax.', 'orbax.',"
-        " 'qpgesture_tpu.')))\n"
+        " 'jaxlib', 'optax', 'orbax', 'msgpack', 'matplotlib',"
+        " 'qpgesture_tpu') or k.startswith(("
+        "'jax.', 'flax.', 'jaxlib.', 'optax.', 'orbax.', 'msgpack.',"
+        " 'matplotlib.', 'qpgesture_tpu.')))\n"
         "print('BAD', bad)\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
@@ -203,6 +207,30 @@ def test_entry_points_default_to_cuda(tmp_path):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         ResyncTrainer(ResyncConfig(), 5, 9, 32, mesh_shape=(2, 2),
                       device="cpu")
+
+    # SimpleVQVAE, Seq2Seq, the VQ-VAE below "highest" and from a JAX
+    # msgpack file, and build-db --dataset trinity
+    from qpgesture_tpu_torch.models.seq2seq import Seq2SeqNet
+    from qpgesture_tpu_torch.models.simple_vqvae import SimpleVQVAE
+    from qpgesture_tpu_torch.models.vqvae import load_vqvae_native
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SimpleVQVAE(VQVAEConfig(emb_width=8, l_bins=8))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Seq2SeqNet(10, 4, 8, 6, 5)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        VQVAE(VQVAEConfig(width=8, emb_width=8, l_bins=8, depth=1,
+                          conv_precision="default"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["build-db", "--dataset", "trinity", "--trn-path", missing,
+              "--val-path", missing, "--out", str(tmp_path / "trinity")])
+    msgpack_vq = str(tmp_path / "vq.msgpack")
+    from qpgesture_tpu_torch.models.convert import vqvae_state_dict_to_jax
+    from qpgesture_tpu_torch.utils import flax_msgpack
+    small = VQVAEConfig(width=8, emb_width=8, l_bins=8, depth=1)
+    flax_msgpack.save(msgpack_vq, vqvae_state_dict_to_jax(
+        VQVAE(small, device="cpu").state_dict(), small))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_vqvae_native(msgpack_vq, small)
 
     # generate: every input it reads before the first device is resolved
     from test_torch_rawwav import _write_generate_inputs
