@@ -93,6 +93,16 @@ counts set to 0 just before it and read just after:
                build-db --dataset trinity in both modes on a synthetic
                GENEA-layout split and the store's windows gathered on the
                card; render/analytics on the "default" codes.
+  phase 20     process groups on the one card: a J=4096 database (wavvq
+               and shipped) served sharded by world 1 under NCCL and by 2
+               and 4 gloo ranks sharing the card (predict_sharded with K1
+               and the cosine tables, predict_batch_sharded, serve_sharded
+               with WavLM-Large's K2, tick_sharded interleaved with tick),
+               every rank against the single device bit for bit, with
+               per-rank tables and combine times and resident bytes; one
+               data-parallel step of each trainer in 2 ranks against one
+               device; match --sharded always / auto and train-vqvae under
+               torch.distributed.run.
 
 It prints one line per check. The last three lines are the card's name and
 power limit, one JSON object with every kernel's launches, error and
@@ -382,9 +392,10 @@ def skeleton_bvh_text(rng, n_frames: int = 48, fps: int = 120,
     return "\n".join(lines) + "\n"
 
 
-def make_data(rng):
-    """Seeded synthetic speaker database and test clips at the shapes of
-    tests/fixtures.py (only the arrays the wavvq preset reads)."""
+def make_data(rng, J=J):
+    """Seeded synthetic speaker database of J sequences and test clips at
+    the shapes of tests/fixtures.py (only the arrays the wavvq preset
+    reads)."""
     import numpy as np
     from qpgesture_tpu_torch.core import constants as C
     from qpgesture_tpu_torch.core.schemas import (CodebookSignature,
@@ -1969,10 +1980,12 @@ def phase16_tables(dev, shipped, vqvae_gpu, data_mean, data_std):
     cos_highest = cosine_ms(q48, base.devdb.aud_feat)
 
     def staged_bytes(cfg):
-        """(engine, the device bytes its construction left allocated)"""
+        """(engine, the device bytes that its construction and its
+        database's staging, on first use, left allocated)"""
         torch.cuda.synchronize()
         m0 = torch.cuda.memory_allocated()
         engine = eng.CodeKNNEngine(cfg, db, device=dev)
+        engine.devdb
         torch.cuda.synchronize()
         return engine, torch.cuda.memory_allocated() - m0
 
@@ -2431,12 +2444,19 @@ def grad_err(card_model, cpu_model, zero_grad=()):
     in zero_grad (gradient 0 analytically, rounding noise on both devices)
     enter both as their largest difference relative to the model's largest
     |g|."""
-    cpu_params = dict(cpu_model.named_parameters())
-    top = max(float(p.grad.abs().max()) for p in cpu_params.values())
+    return grads_err({n: p.grad for n, p in card_model.named_parameters()},
+                     {n: p.grad for n, p in cpu_model.named_parameters()},
+                     zero_grad)
+
+
+def grads_err(got: dict, ref: dict, zero_grad=()):
+    """grad_err of two {name: gradient} dicts, ``ref`` the reference."""
+    ref = {n: g.cpu() for n, g in ref.items()}
+    top = max(float(g.abs().max()) for g in ref.values())
     norm_err = elem_err = 0.0
-    for name, p in card_model.named_parameters():
-        want = cpu_params[name].grad
-        diff = p.grad.cpu() - want
+    for name, g in got.items():
+        want = ref[name]
+        diff = g.cpu() - want
         if name in zero_grad:
             e = float(diff.abs().max()) / top
             norm_err, elem_err = max(norm_err, e), max(elem_err, e)
@@ -3953,6 +3973,649 @@ def load_wav(path: str):
     return load_wav_16k(path)
 
 
+# -- phase 20: process groups on the card -----------------------------------
+# the database of phase 20: 4x phase 4's J (the shipped features ~2.6 GB
+# float32 staged), requests of W windows, C clips of predict_batch_sharded
+# and C streams of the pool, the tick schedule (sharded, plain, sharded),
+# the groups (world, backend; gloo ranks share cuda:0), timed repetitions
+P20_J, P20_C = 4 * J, 8
+P20_TICKS = (True, False, True)
+P20_GROUPS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))
+P20_REPS = 3
+# data-parallel training: each trainer's configuration batch in 2 ranks,
+# its timed steps; the CLIs under torchrun: match's database (sequences)
+# and train-vqvae's cut epoch (windows)
+P20_TRAIN = {"VQVAE": 256, "PAE": 32, "end2end": 32, "resync": 100}
+P20_TIMED = 3
+P20_CLI_J, P20_CLI_WINDOWS = 512, 512
+# ResyncNet's data-parallel losses against one device's, relative (1 below
+# |loss| 1): the critic's loss at initialization moves with its fakes'
+# rounding (a LeakyReLU slope inside the penalty's double backward flips,
+# see RESYNC_GRAD_RTOL). Fakes ~1e-6 apart (the generator's BatchNorm
+# statistics summed over two blocks) moved it by up to 1.5e-5 at batch 4
+# on the CPU and by 2.2e-5 (flax's statistics) / 5.6e-5 (two-pass) at
+# batch 100 on an H100; a step that drops a rank's gradients or shards the
+# interpolation points wrongly moves it by O(1e-1)
+P20_RESYNC_LOSS_RTOL = 2e-4
+
+
+def save_db(db, path: str) -> None:
+    """A MatchDatabase as one .npy per array (the ranks memory-map them)
+    and a pickle of the rest."""
+    import pickle
+    import numpy as np
+    os.makedirs(path, exist_ok=True)
+    rest = {}
+    for f in dataclasses.fields(db):
+        value = getattr(db, f.name)
+        if isinstance(value, np.ndarray):
+            np.save(os.path.join(path, f.name + ".npy"), value)
+        else:
+            rest[f.name] = value
+    with open(os.path.join(path, "rest.pkl"), "wb") as f:
+        pickle.dump(rest, f)
+
+
+def load_db(path: str):
+    """save_db's database, every array memory-mapped (copy on write, so
+    torch may wrap them): a rank reads only the rows of its shard and the
+    small replicated tables."""
+    import pickle
+    import numpy as np
+    from qpgesture_tpu_torch.match.database import MatchDatabase
+    with open(os.path.join(path, "rest.pkl"), "rb") as f:
+        rest = pickle.load(f)
+    arrays = {name[:-4]: np.load(os.path.join(path, name), mmap_mode="c")
+              for name in os.listdir(path) if name.endswith(".npy")}
+    return MatchDatabase(**rest, **arrays)
+
+
+def host_ms(fn, n: int = P20_REPS):
+    """(the last result, median host ms) of n calls of fn after one
+    warm-up; fn returns host arrays, so each call has synchronised."""
+    out = fn()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return out, statistics.median(times)
+
+
+def oracle_tuple(r):
+    return (r.codes, r.phases, r.votes)
+
+
+def resident_bytes(dev, stage) -> int:
+    """The device bytes that stage() leaves allocated: memory_allocated's
+    growth on a card; on the CPU (a rehearsal) the bytes of the tensors it
+    returns."""
+    import torch
+    if dev.type != "cuda":
+        out = stage()
+        parts = [getattr(out, f.name) for f in dataclasses.fields(out)]
+        flat = []
+        while parts:
+            x = parts.pop()
+            if isinstance(x, (tuple, list)):
+                parts.extend(x)
+            elif dataclasses.is_dataclass(x):
+                parts.extend(getattr(x, f.name)
+                             for f in dataclasses.fields(x))
+            elif isinstance(x, torch.Tensor):
+                flat.append(x)
+        return sum(t.numel() * t.element_size() for t in flat)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    stage()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated(dev) - before
+
+
+def phase20_setup(dev, rng, tmp: str, enc_cpu, vq_cpu, data_mean, data_std):
+    """Phase 20's databases (J=P20_J: wavvq and shipped), requests and
+    models, written to tmp for the ranks, and the single-device references
+    on the card: predict, predict_batch, serve and three pool ticks, their
+    request ms and the shipped database's resident bytes. Returns (the
+    references, make_data's arrays for the CLIs)."""
+    import pickle
+    import numpy as np
+    import torch
+    from qpgesture_tpu_torch.core.config import MATCH_PRESETS
+    from qpgesture_tpu_torch.match.database import (stage_database,
+                                                    stage_test_audio,
+                                                    stage_test_context)
+    from qpgesture_tpu_torch.match.engine import CodeKNNEngine
+    from qpgesture_tpu_torch.serve import RawWavServer, StreamingPool
+
+    t0 = time.time()
+    bundle, codes, signature, wavvq, clips = make_data(rng, P20_J)
+    cfg_w, cfg_s = MATCH_PRESETS["wavvq"], MATCH_PRESETS["shipped"]
+    db_w = stage_database(cfg_w, bundle, codes, signature, wavvq=wavvq)
+    # the shipped database with random staged features: its tables come
+    # from a one-channel WavLM stand-in, whose staging (phases 4-19 run the
+    # real one) would cost the full-width interpolation of 3.3 GB
+    db_s = stage_database(cfg_s, bundle, codes, signature,
+                          wavlm=np.zeros((P20_J, 199, 1), np.float32))
+    B = db_s.aud_feat.shape[1]
+    db_s = dataclasses.replace(db_s, aud_feat=np.random.default_rng(
+        SEED + 20).random((P20_J, B, 6 * 1024), dtype=np.float32) - 0.5)
+    save_db(db_w, os.path.join(tmp, "db_wavvq"))
+    save_db(db_s, os.path.join(tmp, "db_shipped"))
+    torch.save(enc_cpu.state_dict(), os.path.join(tmp, "wavlm.pt"))
+    torch.save(vq_cpu.state_dict(), os.path.join(tmp, "vqvae.pt"))
+    wv, ctx = clips[0]
+    ta_w = stage_test_audio(cfg_w, db_w, wavvq=wv)
+    tc_w = stage_test_context(db_w, ctx)
+    ta_s = stage_test_audio(cfg_s, db_s, wavlm=rng.randn(
+        W, 199, 1024).astype(np.float32))
+    batch = [np.stack([stage_test_audio(cfg_w, db_w, wavvq=c[0])
+                       for c in clips[:P20_C // 2]] * 2),
+             np.stack([stage_test_context(db_w, c[1])
+                       for c in clips[:P20_C // 2]] * 2)]
+    ticks = [(np.stack([ta_w[(t + i) % W] for i in range(P20_C)]),
+              np.stack([tc_w[(t + i) % W] for i in range(P20_C)]))
+             for t in range(len(P20_TICKS))]
+    wav = (rng.randn(W, 64000) * 3000).astype(np.int16)
+    inputs = dict(ta_w=ta_w, tc_w=tc_w, ta_s=ta_s, batch=batch, ticks=ticks,
+                  wav=wav, ctx=ctx, mean=data_mean, std=data_std,
+                  train=phase20_train_inputs(rng))
+    with open(os.path.join(tmp, "p20.pkl"), "wb") as f:
+        pickle.dump(inputs, f)
+    log(f"phase 20 set-up: J={P20_J} databases (wavvq strings "
+        f"{db_w.aud_strings.nbytes / 1e6:.0f} MB, shipped features "
+        f"{db_s.aud_feat.nbytes / 1e9:.2f} GB float32) written for the "
+        f"ranks to memory-map; {time.time() - t0:.1f} s")
+
+    seed = cfg_w.seed
+    eng_w = CodeKNNEngine(cfg_w, db_w, device=dev)
+    eng_s = CodeKNNEngine(cfg_s, db_s, device=dev)
+    ref = {"resident": resident_bytes(dev, lambda: eng_s.devdb)}
+    rs = lambda: np.random.RandomState(seed)
+    ref["predict wavvq"], ref["ms predict wavvq"] = host_ms(
+        lambda: oracle_tuple(eng_w.predict(ta_w, tc_w, rng=rs())))
+    ref["predict shipped"], ref["ms predict shipped"] = host_ms(
+        lambda: oracle_tuple(eng_s.predict(ta_s, tc_w, rng=rs())))
+    ref["batch"] = [oracle_tuple(r) for r in eng_w.predict_batch(
+        *batch, rng=rs())]
+    server = RawWavServer(eng_s, copy.deepcopy(vq_cpu).to(dev),
+                          copy.deepcopy(enc_cpu).to(dev), data_mean,
+                          data_std)
+    ref["serve"], ref["ms serve"] = host_ms(lambda: server.serve(
+        wav, ctx, init_code=0, rng=rs()))
+    pool = StreamingPool(eng_w, P20_C)
+    ref["tick"] = ([pool.tick(*t) for t in ticks],
+                   tuple(x.cpu().numpy() for x in pool.state()))
+    log(f"phase 20 single device (no group): request ms predict wavvq "
+        f"{ref['ms predict wavvq']:.3f}, predict shipped "
+        f"{ref['ms predict shipped']:.3f}, serve shipped raw wav "
+        f"{ref['ms serve']:.3f}; shipped database resident "
+        f"{ref['resident'] / 1e9:.3f} GB")
+    del server, pool, eng_w, eng_s
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return ref, (bundle, codes, signature, wavvq, clips)
+
+
+def phase20_train_inputs(rng):
+    """One batch of each trainer at its configuration's batch size."""
+    import numpy as np
+    n = P20_TRAIN
+    return dict(
+        VQVAE=(rng.randn(n["VQVAE"], 240, 135) * 0.5).astype(np.float32),
+        PAE=(rng.randn(n["PAE"], 240, 135) * 0.5).astype(np.float32),
+        end2end=((rng.randn(n["end2end"], 64000) * 0.1).astype(np.float32),
+                 rng.randint(0, 512, (n["end2end"], 30)).astype(np.int32)),
+        resync=(rng.randn(n["resync"], 240, 13 + 135).astype(np.float32),
+                rng.randn(n["resync"], 240, 13 + 135).astype(np.float32),
+                rng.rand(n["resync"], 1, 1).astype(np.float32)))
+
+
+def phase20_trainers(dev):
+    """Each trainer built from SEED on dev, and its step on a batch."""
+    from qpgesture_tpu_torch.core.config import (End2EndConfig, PAEConfig,
+                                                 ResyncConfig, TrainConfig,
+                                                 VQVAEConfig)
+    from qpgesture_tpu_torch.train.train_end2end import End2EndTrainer
+    from qpgesture_tpu_torch.train.train_pae import PAETrainer
+    from qpgesture_tpu_torch.train.train_resync import ResyncTrainer
+    from qpgesture_tpu_torch.train.train_vqvae import VQVAETrainer
+    import torch
+    vq = VQVAETrainer(VQVAEConfig(), TrainConfig(), device=dev, seed=SEED)
+    pae = PAETrainer(PAEConfig(), device=dev, seed=SEED)
+    e2e = End2EndTrainer(End2EndConfig(), device=dev, seed=SEED)
+    rs = ResyncTrainer(ResyncConfig(), n_mfcc=13, n_joints=135,
+                       num_frames=240, device=dev, seed=SEED)
+    return {
+        "VQVAE": (vq, vq.model, lambda x: vq.train_step(x)[0]),
+        "PAE": (pae, pae.model, pae.train_step),
+        "end2end": (e2e, e2e.model, lambda b: e2e.train_step(*b)),
+        "resync": (rs, rs, lambda b: rs.train_iteration(
+            b[0], b[1], 0, torch.as_tensor(b[2]))),
+    }
+
+
+def _named_grads(module, prefix=""):
+    return {prefix + n: p.grad.detach().cpu() for n, p in
+            module.named_parameters() if p.grad is not None}
+
+
+def resync_check_step(trainer, batch, critic: str, save: bool):
+    """One critic step and one generator step of a ResyncTrainer on its
+    block of batch (all of it in one process), the generator step scoring
+    against the critic in the file ``critic``, which the one-device
+    reference writes (save) after its critic step: Adam with b1 = 0 moves
+    each weight by about lr times its gradient's sign, so the weights whose
+    gradient is rounding noise would leave two critics ~lr apart (as in
+    phase 18). Returns (losses, gradients)."""
+    import torch
+    from qpgesture_tpu_torch.parallel.dist import local_block
+    x_knn, x_real, eps = batch
+    eps = torch.as_tensor(eps)
+    if trainer.group is not None:
+        x_knn, x_real = trainer.shard((x_knn, x_real))
+        eps = local_block(eps, trainer.group)
+    d_loss = trainer.d_step(x_knn, x_real, eps)
+    grads = _named_grads(trainer.disc, "disc.")
+    if save:
+        torch.save(trainer.disc.state_dict(), critic)
+    trainer.disc.load_state_dict(torch.load(critic))
+    g_loss = trainer.g_step(x_knn, x_real)
+    return ({"d_loss": float(d_loss), "g_loss": float(g_loss)},
+            {**grads, **_named_grads(trainer.gen, "gen.")})
+
+
+def phase20_train_rank(dev, inputs, tmp: str, prefix: str):
+    """One data-parallel step of each trainer on its configuration's batch
+    (this rank takes its block; ResyncNet's by resync_check_step), then the
+    step's time and idle share. Returns {trainer: (losses, gradients)}
+    (gradients on rank 0 only)."""
+    import torch
+    from qpgesture_tpu_torch.parallel.dist import rank
+    out = {}
+    for name, (trainer, _, step) in phase20_trainers(dev).items():
+        batch = inputs[name]
+        if name == "VQVAE":
+            trainer.init_codebook(batch)
+        if name == "resync":
+            losses, grads = resync_check_step(
+                trainer, batch, os.path.join(tmp, "p20_critic.pt"), False)
+        else:
+            loss = step(batch)
+            losses = {"loss": float(loss)}
+            grads = _named_grads(trainer.model)
+        out[name] = (losses, grads if rank() == 0 else None)
+        on_card = tuple(torch.as_tensor(b).to(dev) for b in batch) \
+            if isinstance(batch, tuple) else torch.as_tensor(batch).to(dev)
+        if rank() == 0:
+            time_trainer(f"{name} data-parallel step (batch "
+                         f"{P20_TRAIN[name]})", lambda: step(on_card),
+                         P20_TRAIN[name], n=P20_TIMED, phase=prefix)
+        else:   # the same steps: each one meets the others' collectives
+            for _ in range(3 + P20_TIMED + 3):
+                step(on_card)
+    return out
+
+
+def phase20_train_reference(dev, inputs, world: int, tmp: str):
+    """The references of phase20_train_rank on one device: the VQ-VAE and
+    ResyncNet (whose generator's BatchNorms the group synchronises, in
+    flax's formula, which the reference takes too) step on the whole
+    batch; the PAE and the GRU, whose BatchNorms normalise each
+    rank's block, as the mean over the world's blocks of one step's loss and
+    gradients, each block from the same state (the GRU's dropout generator
+    too), as the JAX trainers' per-shard statistics have it. ResyncNet's
+    critic after its step goes to tmp for the ranks' generator steps."""
+    import torch
+    from qpgesture_tpu_torch.models.batchnorm import sync_batchnorm
+    from qpgesture_tpu_torch.train.train_pae import pae_loss
+    out = {}
+    for name, (trainer, module, step) in phase20_trainers(dev).items():
+        batch = inputs[name]
+        if name == "resync":
+            sync_batchnorm(trainer.gen)
+            out[name] = resync_check_step(
+                trainer, batch, os.path.join(tmp, "p20_critic.pt"), True)
+            continue
+        if name == "VQVAE":
+            trainer.init_codebook(batch)
+            out[name] = ({"loss": float(step(batch))},
+                         _named_grads(trainer.model))
+            continue
+        module.train()
+        gen_state = getattr(trainer, "generator", None)
+        gen_state = gen_state.get_state() if gen_state is not None else None
+        loss_sum, grads = 0.0, None
+        n = P20_TRAIN[name] // world
+        for r in range(world):
+            module.zero_grad(set_to_none=True)
+            if name == "PAE":
+                loss = pae_loss(module, torch.as_tensor(
+                    batch[r * n:(r + 1) * n]).to(dev))
+            else:
+                trainer.generator.set_state(gen_state)
+                wav, codes = (torch.as_tensor(b[r * n:(r + 1) * n]).to(dev)
+                              for b in batch)
+                loss = module(wav, codes.long(),
+                              generator=trainer.generator)[1]
+            loss.backward()
+            loss_sum += float(loss.detach())
+            g = _named_grads(module)
+            grads = g if grads is None else {k: grads[k] + g[k] for k in g}
+        out[name] = ({"loss": loss_sum / world},
+                     {k: v / world for k, v in grads.items()})
+    return out
+
+
+def phase20_rank(tmp: str, device: str, train: bool):
+    """What every rank of phase 20's groups runs on ``device``: the sharded
+    serving surface over the J=P20_J databases of phase20_setup (each rank
+    stages its shard from the memory-mapped files), with per-rank tables
+    and combine times, request times and resident bytes; with ``train``,
+    one data-parallel step of each trainer. Returns the results, K1's and
+    K2's launches in this process and the times."""
+    import pickle
+    import numpy as np
+    import torch
+    from qpgesture_tpu_torch.core.config import MATCH_PRESETS, VQVAEConfig
+    from qpgesture_tpu_torch.match.engine import CodeKNNEngine
+    from qpgesture_tpu_torch.models.vqvae import VQVAE
+    from qpgesture_tpu_torch.models.wavlm import WavLM, WavLMConfig
+    from qpgesture_tpu_torch.ops import flash_attention_cuda as K2
+    from qpgesture_tpu_torch.ops import levenshtein_cuda as K1
+    from qpgesture_tpu_torch.parallel import dist as pd
+    from qpgesture_tpu_torch.parallel.sharded_match import (combine_minargs,
+                                                            shard_minargs)
+    from qpgesture_tpu_torch.serve import RawWavServer, StreamingPool
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    r, n = pd.rank(), pd.world_size()
+    backend = torch.distributed.get_backend()
+    prefix = f"phase 20 [{n} {backend} rank {r}]"
+    with open(os.path.join(tmp, "p20.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    cfg_w, cfg_s = MATCH_PRESETS["wavvq"], MATCH_PRESETS["shipped"]
+    eng_w = CodeKNNEngine(cfg_w, load_db(os.path.join(tmp, "db_wavvq")),
+                          device=dev)
+    eng_s = CodeKNNEngine(cfg_s, load_db(os.path.join(tmp, "db_shipped")),
+                          device=dev)
+    K1.launches = K2.launches = 0
+    out = {"rank": r}
+    t0 = time.perf_counter()
+    out["resident"] = resident_bytes(dev, lambda: eng_s.sharded_db(None))
+    stage_s = time.perf_counter() - t0
+    rs = lambda: np.random.RandomState(cfg_w.seed)
+    ta_w, tc_w, ta_s = inp["ta_w"], inp["tc_w"], inp["ta_s"]
+    out["predict wavvq"], out["ms predict wavvq"] = host_ms(
+        lambda: oracle_tuple(eng_w.predict_sharded(None, ta_w, tc_w,
+                                                   rng=rs())))
+    out["predict shipped"], out["ms predict shipped"] = host_ms(
+        lambda: oracle_tuple(eng_s.predict_sharded(None, ta_s, tc_w,
+                                                   rng=rs())))
+    out["batch"] = [oracle_tuple(x) for x in eng_w.predict_batch_sharded(
+        None, *inp["batch"], rng=rs())]
+    for name, eng, ta in (("wavvq", eng_w, ta_w), ("shipped", eng_s, ta_s)):
+        qa, qc = eng.stage_queries(ta, tc_w)
+        out[f"tables_ms {name}"] = median_ms(
+            lambda: eng.tables(qa, qc, sharded=True), 5)
+    side = eng_s.sharded_db(None).aud
+    mins, args = shard_minargs(cfg_s, torch.as_tensor(ta_s).to(dev).reshape(
+        -1, ta_s.shape[-1]), side, False)
+    out["combine_ms"] = median_ms(lambda: combine_minargs(cfg_s, mins, args),
+                                  10)
+    with torch.device(dev):     # initialised on the card, then overwritten
+        enc = WavLM(WavLMConfig(), device=dev)
+        vq = VQVAE(VQVAEConfig(), device=dev)
+    enc.load_state_dict(torch.load(os.path.join(tmp, "wavlm.pt"),
+                                   map_location=dev))
+    vq.load_state_dict(torch.load(os.path.join(tmp, "vqvae.pt"),
+                                  map_location=dev))
+    server = RawWavServer(eng_s, vq, enc, inp["mean"], inp["std"])
+    k2_before = K2.launches
+    out["serve"], out["ms serve"] = host_ms(lambda: server.serve_sharded(
+        None, inp["wav"], inp["ctx"], init_code=0, rng=rs()))
+    out["k2 per serve"] = ((K2.launches - k2_before) / (P20_REPS + 1),
+                           enc.cfg.encoder_layers if dev.type == "cuda"
+                           else 0)
+    pool = StreamingPool(eng_w, P20_C)
+    out["tick"] = ([pool.tick_sharded(None, *t) if s else pool.tick(*t)
+                    for t, s in zip(inp["ticks"], P20_TICKS)],
+                   tuple(x.cpu().numpy() for x in pool.state()))
+    out["k1"], out["k2"] = K1.launches, K2.launches
+    if r == 0:
+        host = ": CUDA tensors through host copies" \
+            if backend == "gloo" else ""
+        log(f"{prefix}: shard staged in {stage_s:.2f} s, resident "
+            f"{out['resident'] / 1e9:.3f} GB; tables_ms wavvq "
+            f"{out['tables_ms wavvq']:.3f} shipped "
+            f"{out['tables_ms shipped']:.3f}; combine_ms "
+            f"{out['combine_ms']:.3f} ({backend}{host}"
+            f"); request ms predict wavvq {out['ms predict wavvq']:.3f}, "
+            f"shipped {out['ms predict shipped']:.3f}, serve_sharded "
+            f"{out['ms serve']:.3f}; launches K1 {out['k1']}, K2 "
+            f"{out['k2']}")
+    del server, enc, vq
+    if train:
+        out["train"] = phase20_train_rank(dev, inp["train"], tmp, prefix)
+    return out
+
+
+def phase20_check(world: int, backend: str, ranks: list, ref: dict,
+                  train_ref) -> tuple:
+    """Every rank's results against the single-device references, bit for
+    bit; resident bytes about 1/world of the single device's. Returns the
+    group's K1 and K2 launches."""
+    import numpy as np
+
+    def same(a, b, what):
+        if isinstance(a, (tuple, list)):
+            if len(a) != len(b):
+                raise SystemExit(f"phase 20 {what}: {len(a)} vs {len(b)}")
+            for i, (x, y) in enumerate(zip(a, b)):
+                same(x, y, f"{what}[{i}]")
+        elif (a is None) != (b is None) or (
+                a is not None and not np.array_equal(a, b)):
+            raise SystemExit(f"phase 20 [{world} {backend}]: {what} "
+                             "differs from the single device")
+
+    for out in ranks:
+        for key in ("predict wavvq", "predict shipped", "batch", "serve",
+                    "tick"):
+            same(out[key], ref[key], f"rank {out['rank']} {key}")
+        share = out["resident"] / ref["resident"]
+        if not 0.9 / world < share < 1.1 / world + 0.02:
+            raise SystemExit(f"phase 20 [{world} {backend}]: rank resident "
+                             f"{share:.3f} of one device's database")
+        got, want = out["k2 per serve"]
+        if got != want:
+            raise SystemExit(f"serve_sharded launched K2 {got} times a "
+                             f"request, not {want} (one per layer)")
+    k1 = sum(o["k1"] for o in ranks)
+    k2 = sum(o["k2"] for o in ranks)
+    shares = [round(o["resident"] / ref["resident"], 4) for o in ranks]
+    log(f"phase 20 [{world} {backend}]: every rank's codes, phases, votes, "
+        f"poses and carried seeds == the single device's (predict wavvq / "
+        f"shipped, predict_batch_sharded C={P20_C}, serve_sharded, "
+        f"{len(P20_TICKS)} interleaved ticks of {P20_C} streams); resident "
+        f"per rank {shares}"
+        f" of one device's {ref['resident'] / 1e9:.3f} GB; request ms rank 0"
+        f" vs one device: predict wavvq {ranks[0]['ms predict wavvq']:.3f} /"
+        f" {ref['ms predict wavvq']:.3f}, shipped "
+        f"{ranks[0]['ms predict shipped']:.3f} / "
+        f"{ref['ms predict shipped']:.3f}, serve "
+        f"{ranks[0]['ms serve']:.3f} / {ref['ms serve']:.3f}; tables_ms per"
+        f" rank {[round(o['tables_ms shipped'], 3) for o in ranks]} "
+        f"(shipped), combine_ms {[round(o['combine_ms'], 3) for o in ranks]}"
+        f"; launches K1 {k1}, K2 {k2}")
+    if train_ref is not None:
+        # the biases that feed a normalisation: gradient 0, rounding noise
+        zero = {"VQVAE": set(),
+                "PAE": {"conv1.bias", "conv2.bias", "deconv1.bias"} | {
+                    f"fc.{i}.bias" for i in range(8)},
+                "end2end": {f"WavEncoder.feat_extractor.{k}.bias"
+                            for k in (0, 3, 6, 9)}}
+        for name, (losses, grads) in ranks[0]["train"].items():
+            want_losses, want_grads = train_ref[name]
+            fed = zero.get(name) or {k for k in want_grads
+                                     if k.endswith((".0.bias", ".3.bias"))}
+            g_err = grads_err(grads, want_grads, fed)[0]
+            tol, loss_tol, floor = TRAIN_GRAD_RTOL, TRAIN_LOSS_RTOL, 1e-12
+            if name == "resync":
+                tol, loss_tol = RESYNC_GRAD_RTOL, P20_RESYNC_LOSS_RTOL
+                floor = 1.0
+            err = max(abs(losses[k] - want_losses[k]) /
+                      max(abs(want_losses[k]), floor) for k in losses)
+            log(f"phase 20 [{world} {backend}] {name} data-parallel step "
+                f"(batch {P20_TRAIN[name]}, {P20_TRAIN[name] // world} a "
+                f"rank) vs one device: losses {losses} / {want_losses}, rel "
+                f"{err:.3e} (tol {loss_tol}), gradients {g_err:.3e} (tol "
+                f"{tol})")
+            if err > loss_tol or g_err > tol:
+                raise SystemExit(f"phase 20 {name}: the data-parallel step "
+                                 "differs from one device's")
+    return k1, k2
+
+
+def torchrun(n: int, argv: list, env: dict = None) -> subprocess.Popen:
+    """python -m torch.distributed.run --standalone --nproc-per-node n -m
+    qpgesture_tpu_torch argv..., started (not waited for) from the
+    checkout."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(n), "-m", "qpgesture_tpu_torch", *argv],
+        cwd=REPO, env={**os.environ, "PYTHONPATH": REPO, **(env or {})},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish(name: str, proc: subprocess.Popen) -> str:
+    out, _ = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise SystemExit(f"phase 20 {name} exited {proc.returncode}:\n"
+                         f"{out[-4000:]}")
+    return out
+
+
+def phase20(dev, rng, tmp: str, vq_cpu, data_mean, data_std) -> tuple:
+    """Phase 20: database-sharded serving and data-parallel training in
+    process groups on the one card (world 1 under NCCL; 2 and 4 gloo ranks
+    sharing cuda:0), each rank held against the single device; match
+    --sharded and train-vqvae under torch.distributed.run. Returns K1's
+    and K2's launches (in the groups' ranks)."""
+    import pickle
+    import numpy as np
+    import torch
+    from qpgesture_tpu_torch.cli import main as cli
+    from qpgesture_tpu_torch.core.schemas import (load_result, save_codes,
+                                                  save_result, save_wavvq)
+    from qpgesture_tpu_torch.models.wavlm import WavLM, WavLMConfig
+    from qpgesture_tpu_torch.motion.bvh import parse_bvh
+    from qpgesture_tpu_torch.motion.pipeline import MotionPipeline
+    from qpgesture_tpu_torch.parallel.dist import spawn
+    from qpgesture_tpu_torch.train.data import WindowedDataset
+    p = lambda *names: os.path.join(tmp, *names)
+
+    torch.manual_seed(SEED)
+    enc_cpu = WavLM(WavLMConfig(), device="cpu")
+    with torch.no_grad():   # a gate that is not ~constant, as in phase 7
+        for name, prm in enc_cpu.named_parameters():
+            if "grep_linear" in name:
+                prm.mul_(8.0)
+    ref, (bundle, codes, signature, wavvq, clips) = phase20_setup(
+        dev, rng, tmp, enc_cpu, vq_cpu, data_mean, data_std)
+    del enc_cpu
+    with open(p("p20.pkl"), "rb") as f:
+        train_inputs = pickle.load(f)["train"]
+    t0 = time.time()
+    train_ref = phase20_train_reference(dev, train_inputs, 2, tmp)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"phase 20 single-device training references: "
+        f"{time.time() - t0:.1f} s")
+
+    # the CLIs' files: the first P20_CLI_J sequences of the wavvq
+    # database (the files are compressed), a cut train-vqvae set
+    os.makedirs(p("cli"))
+    n = P20_CLI_J
+    dataclasses.replace(bundle, context=bundle.context[:n],
+                        phase=bundle.phase[:n]).save(p("cli", "db.npz"))
+    save_codes(p("cli", "codes.npz"), codes[:n])
+    signature.save(p("cli", "code.npz"))
+    save_wavvq(p("cli", "wavvq.npz"), wavvq[:n])
+    save_wavvq(p("cli", "test_wavvq.npz"), clips[0][0])
+    dataclasses.replace(bundle, context=clips[0][1],
+                        phase=None).save(p("cli", "test.npz"))
+    match = ["match", "--train-database", p("cli", "db.npz"),
+             "--train-codebook", p("cli", "codes.npz"),
+             "--codebook-signature", p("cli", "code.npz"),
+             "--train-wavvq", p("cli", "wavvq.npz"),
+             "--test-wavvq", p("cli", "test_wavvq.npz"),
+             "--test-data", p("cli", "test.npz"), "--preset", "wavvq"]
+    for name, n in (("train", P20_CLI_WINDOWS), ("val", TRAIN_BATCH)):
+        WindowedDataset(poses=(rng.randn(n, 240, 135) * 0.5).astype(
+            np.float32)).save(p("cli", name))
+    write_train_config(p("cli", "train.yml"), val_data_path=p("cli", "val"))
+    # the card every rank of every group runs on
+    rank_dev = str(torch.device("cuda", torch.cuda.current_device())) \
+        if dev.type == "cuda" else str(dev)
+    k1 = k2 = 0
+    for world, backend in P20_GROUPS:
+        t1 = time.time()
+        ranks = spawn(phase20_rank, world, (tmp, rank_dev, world == 2),
+                      backend=backend)
+        a, b = phase20_check(world, backend, ranks, ref,
+                             train_ref if world == 2 else None)
+        k1, k2 = k1 + a, k2 + b
+        log(f"phase 20 [{world} {backend}] group: {time.time() - t1:.1f} s "
+            f"wall (processes, staging, checks)")
+
+    t0 = time.time()
+    runs = {
+        "match --sharded always (1 rank, nccl)": torchrun(
+            1, match + ["--sharded", "always", "--out", p("cli", "a.npz")]),
+        "match --sharded auto (2 gloo ranks on cuda:0)": torchrun(
+            2, match + ["--sharded", "auto", "--out", p("cli", "b.npz"),
+                        "--device", rank_dev, "--dist-backend", "gloo"],
+            {"QPG_HBM_BYTES": "1"}),
+        "train-vqvae (1 rank, nccl)": torchrun(
+            1, ["train-vqvae", "--config", p("cli", "train.yml"), "--data",
+                p("cli", "train"), "--out", p("cli", "vq"), "--epochs",
+                "1"]),
+    }
+    outs = {name: finish(name, proc) for name, proc in runs.items()}
+    cli(match + ["--sharded", "never", "--out", p("cli", "ref.npz")])
+    want = load_result(p("cli", "ref.npz"))
+    for name, path, n in (("always", "a.npz", 1), ("auto", "b.npz", 2)):
+        text = outs[next(k for k in outs if f"--sharded {name}" in k)]
+        if f"J axis over {n} rank(s)" not in text or \
+                not np.array_equal(load_result(p("cli", path)), want):
+            raise SystemExit(f"phase 20 match --sharded {name}: not sharded "
+                             f"over {n} rank(s) or codes differ:\n"
+                             f"{text[-2000:]}")
+    pipe = MotionPipeline(fps=60).fit(parse_bvh(skeleton_bvh_text(rng)))
+    with open(p("cli", "pipeline.json"), "w") as f:
+        f.write(pipe.to_json())
+    save_result(p("cli", "codes_in.npz"),
+                rng.randint(0, 512, (2, 30)).astype(np.int32))
+    cli(["decode", "--result", p("cli", "codes_in.npz"), "--checkpoint",
+         p("cli", "vq"), "--pipeline", p("cli", "pipeline.json"),
+         "--config", p("cli", "train.yml"), "--out", p("cli", "bvh"),
+         "--prefix", "p20"])
+    bvh = parse_bvh(p("cli", "bvh", "p20_generated.bvh"))
+    if bvh.values.shape[0] != 2 * 240 or not np.isfinite(bvh.values).all():
+        raise SystemExit(f"phase 20 decode of train-vqvae's checkpoint: "
+                         f"{bvh.values.shape}")
+    log(f"phase 20 torch.distributed.run: match --sharded always (1 rank, "
+        f"NCCL) and --sharded auto (2 gloo ranks, QPG_HBM_BYTES=1: the "
+        f"spill branch) == match --sharded never on J={P20_CLI_J}; "
+        f"train-vqvae 1 epoch of "
+        f"{P20_CLI_WINDOWS} windows (batch {TRAIN_BATCH}) -> rank 0's "
+        f"best.pt decoded to BVH {bvh.values.shape}; {time.time() - t0:.1f}"
+        f" s wall (the three launches at once)")
+    return k1, k2
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4326,6 +4989,15 @@ def main() -> int:
         k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
     del built
     phase_wall("phase 19")
+
+    # -- phase 20: process groups: sharded serving, data-parallel training -
+    with tempfile.TemporaryDirectory() as tmp:
+        k1, k2 = phase20(dev, rng, tmp, model_cpu, data_mean, data_std)
+    log(f"phase 20 launches (in the groups' ranks): K1 {k1}, K2 {k2}")
+    if not (k1 and k2):
+        raise SystemExit("phase 20 did not launch K1 and K2")
+    k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
+    phase_wall("phase 20")
 
     # -- the kernels line and the result ------------------------------------
     kernels_line = {"kernels": [{

@@ -6,8 +6,8 @@ nothing from it. Plain tensor code is PyTorch; the reference's Pallas TPU
 kernels become hand-written CUDA kernels for Hopper (``csrc/``), each with a
 plain PyTorch version beside it.
 
-Ported so far (single-GPU serving, matching, database construction and
-training):
+Ported so far (serving, matching, database construction and training, on
+one GPU or over a torch.distributed process group):
 
   core/       typed configs + exact npz artifact schemas (copies)
   ops/        ranking, stacking, MFCC; Levenshtein (K1) and WavLM's gated
@@ -28,6 +28,8 @@ training):
               the VQ-VAE, PAE and GRU-baseline trainers
   utils/      the native host library (WORLD pitch, the record store), the
               scalar history
+  parallel/   process groups in place of the JAX mesh, the database-
+              sharded candidate search
   serve.py    ServingPipeline, RawWavServer, the streaming classes
   cli.py      the subcommands listed in its docstring
 

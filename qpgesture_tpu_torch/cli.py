@@ -22,10 +22,20 @@ Subcommands mirror the reference package's entry points:
 
 They take the reference package's flags; those that run a model also take
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch paths).
+
+``match``, ``train-vqvae``, ``train-pae`` and ``train-end2end`` also run
+as one process per rank under ``python -m torch.distributed.run
+--nproc-per-node N -m qpgesture_tpu_torch ...``: ``match --sharded``
+shards the database over the ranks, the trainers split every batch among
+them. Each rank's device is cuda:{LOCAL_RANK} (a bare ``--device cuda``);
+``--dist-backend`` picks the backend (nccl on the card, gloo on the CPU,
+or for ranks that share one card: ``--device cuda:0 --dist-backend
+gloo``). Rank 0 alone writes files and prints results.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import glob
 import os
 
@@ -58,14 +68,27 @@ def _load_match_db(args):
     return cfg, db
 
 
-def cmd_match(args):
+def _in_group(cmd):
+    """cmd(args, dev) as a subcommand that joins the group that
+    torch.distributed.run describes in its environment (a lone process is a
+    world of one), runs on this rank's device and leaves the group when
+    done."""
+    @functools.wraps(cmd)
+    def run(args):
+        from .parallel.dist import env_group
+        with env_group(args.device, args.dist_backend) as dev:
+            return cmd(args, dev)
+    return run
+
+
+@_in_group
+def cmd_match(args, dev):
     from .core.schemas import DatabaseBundle, load_wavlm, load_wavvq, \
         save_result
     from .match.database import stage_test_audio, stage_test_context
-    from .match.engine import CodeKNNEngine
+    from .match.engine import CodeKNNEngine, should_shard
+    from .parallel.dist import is_main, world_size
 
-    if args.sharded == "always":
-        raise NotImplementedError("--sharded always is not ported yet")
     cfg, db = _load_match_db(args)
 
     test_bundle = DatabaseBundle.load(args.test_data) if args.test_data \
@@ -90,15 +113,21 @@ def cmd_match(args):
         if test_context is not None:
             test_context = test_context[:args.max_frames]
 
-    # one device: 'auto' sharding never spills
-    engine = CodeKNNEngine(cfg, db, device=args.device)
+    engine = CodeKNNEngine(cfg, db, device=dev)
     if args.ties == "reference":
         # phase 1 on the device, the fusion in the reference's arithmetic
         result = engine.predict_reference_ties(test_audio, test_context)
+    elif args.sharded == "always" or (args.sharded == "auto"
+                                      and should_shard(cfg, db, device=dev)):
+        if is_main():
+            print(f"sharding the database's J axis over {world_size()} "
+                  "rank(s)")
+        result = engine.predict_sharded(None, test_audio, test_context)
     else:
         result = engine.predict(test_audio, test_context)
-    save_result(args.out, result.codes)
-    print(f"wrote {args.out}: knn_pred {result.codes.shape}")
+    if is_main():
+        save_result(args.out, result.codes)
+        print(f"wrote {args.out}: knn_pred {result.codes.shape}")
 
 
 def _load_vqvae(path: str, cfg, device):
@@ -741,18 +770,20 @@ def _train_dataset(path: str, conf):
     return ds
 
 
-def cmd_train_vqvae(args):
+@_in_group
+def cmd_train_vqvae(args, dev):
     """train.py: the VQ-VAE on a WindowedDataset directory. Checkpoints go
     to <out>/best.pt (validated on the config's val_data_path, when it names
     one), latest.pt and {epoch:03d}.pt, the scalar history to
-    <out>/scalars.jsonl; --resume continues from <out>/latest.pt."""
+    <out>/scalars.jsonl; --resume continues from <out>/latest.pt. Under
+    torch.distributed.run every rank walks the same batches and trains on
+    its block of each; rank 0 writes, every rank reads --resume."""
     from .core.config import load_config
-    from .device import resolve_device
+    from .parallel.dist import is_main
     from .train.checkpoints import checkpoint_path, restore_checkpoint
     from .train.train_vqvae import VQVAETrainer
     from .utils.metrics_log import ScalarHistory
 
-    dev = resolve_device(args.device)
     conf = load_config(args.config)
     ds = _train_dataset(args.data, conf)
     batches = list(ds.batches(conf.train.batch_size, seed=0))
@@ -782,87 +813,92 @@ def cmd_train_vqvae(args):
             prior = ScalarHistory.last(hist_path, "best_val_err")
             if prior is not None:
                 initial_best = (float(prior), 0)
-        print(f"resumed from {args.out}/latest.pt at epoch {start_epoch}")
+        if is_main():
+            print(f"resumed from {args.out}/latest.pt at epoch "
+                  f"{start_epoch}")
     best = trainer.fit(batches, val_batches, epochs=args.epochs,
                        checkpoint_dir=args.out, start_epoch=start_epoch,
                        initial_best=initial_best)
-    print(f"best val: {best}")
+    if is_main():
+        print(f"best val: {best}")
 
 
-def cmd_train_pae(args):
+@_in_group
+def cmd_train_pae(args, dev):
     """PAE.py --stage train on a WindowedDataset directory; {epoch:03d}.pt
-    every save_per_epochs and latest.pt at the end in --out."""
+    every save_per_epochs and latest.pt at the end in --out. Under
+    torch.distributed.run every rank walks the same batches and trains on
+    its block of each; rank 0 writes."""
     from .core.config import load_config
-    from .device import resolve_device
     from .train.checkpoints import save_checkpoint
     from .train.data import device_prefetch
     from .train.train_pae import PAETrainer
     from .utils.metrics_log import ScalarHistory
 
-    dev = resolve_device(args.device)
     conf = load_config(args.config)
     ds = _train_dataset(args.data, conf)
     batches = list(ds.batches(max(args.batch_size, 8), seed=0))
     trainer = PAETrainer(conf.pae, steps_per_epoch=max(len(batches), 1),
                          device=dev)
+    out = args.out if trainer.writes else None
     epochs = args.epochs or conf.pae.epochs
-    hist = ScalarHistory(os.path.join(args.out, "scalars.jsonl")) \
-        if args.out else None
+    hist = ScalarHistory(os.path.join(out, "scalars.jsonl")) if out else None
     try:
         for epoch in range(epochs):
-            for batch in device_prefetch(batches, dev):
-                loss = trainer.train_step(batch)
+            for block in device_prefetch(map(trainer.shard, batches), dev):
+                loss = trainer.train_block(block)
             loss_v = float(loss)
-            print(f"epoch {epoch}: loss {loss_v:.5f}")
+            if trainer.writes:
+                print(f"epoch {epoch}: loss {loss_v:.5f}")
             if hist:
                 hist.log(epoch=epoch, loss=loss_v)
-            if args.out and (epoch + 1) % conf.pae.save_per_epochs == 0:
-                save_checkpoint(args.out, trainer.state_dict(epoch),
+            if out and (epoch + 1) % conf.pae.save_per_epochs == 0:
+                save_checkpoint(out, trainer.state_dict(epoch),
                                 name=f"{epoch:03d}")
     finally:
         if hist:
             hist.close()
-    if args.out:
-        save_checkpoint(args.out, trainer.state_dict(epochs - 1),
-                        name="latest")
+    if out:
+        save_checkpoint(out, trainer.state_dict(epochs - 1), name="latest")
 
 
-def cmd_train_end2end(args):
+@_in_group
+def cmd_train_end2end(args, dev):
     """end2end.py: the GRU baseline on a WindowedDataset directory holding
-    audio.npy and codes.npy; latest.pt at the end in --out."""
+    audio.npy and codes.npy; latest.pt at the end in --out. Under
+    torch.distributed.run every rank walks the same batches and trains on
+    its block of each; rank 0 writes."""
     from .core.config import load_config
-    from .device import resolve_device
     from .train.checkpoints import save_checkpoint
     from .train.data import device_prefetch
     from .train.train_end2end import End2EndTrainer
     from .utils.metrics_log import ScalarHistory
 
-    dev = resolve_device(args.device)
     conf = load_config(args.config)
     ds = _train_dataset(args.data, conf)
     if ds.audio is None or ds.codes is None:
         raise SystemExit(f"{args.data}: end2end training needs audio.npy "
                          "and codes.npy in the dataset")
     trainer = End2EndTrainer(conf.end2end, device=dev)
+    out = args.out if trainer.writes else None
     epochs = args.epochs or conf.end2end.epochs
-    hist = ScalarHistory(os.path.join(args.out, "scalars.jsonl")) \
-        if args.out else None
+    hist = ScalarHistory(os.path.join(out, "scalars.jsonl")) if out else None
     try:
         for epoch in range(epochs):
-            for wav, codes in device_prefetch(
-                    ds.batches(args.batch_size, seed=epoch,
-                               include=("audio", "codes")), dev):
-                loss = trainer.train_step(wav, codes)
+            for wav, codes in device_prefetch(map(trainer.shard, ds.batches(
+                    args.batch_size, seed=epoch,
+                    include=("audio", "codes"))), dev):
+                loss = trainer.train_block(wav, codes)
             loss_v = float(loss)
-            print(f"epoch {epoch}: loss {loss_v:.5f}")
+            if trainer.writes:
+                print(f"epoch {epoch}: loss {loss_v:.5f}")
             if hist:
                 hist.log(epoch=epoch, loss=loss_v)
     finally:
         if hist:
             hist.close()
-    if args.out:
-        save_checkpoint(args.out, trainer.state_dict(epochs - 1),
-                        name="latest")
+    if out:
+        save_checkpoint(out, trainer.state_dict(epochs - 1), name="latest")
 
 
 def _load_motion(path: str) -> np.ndarray:
@@ -1113,10 +1149,20 @@ def main(argv=None):
                         "phase 1 on the device, the fusion on the host)")
     m.add_argument("--sharded", default="auto",
                    choices=["auto", "never", "always"],
-                   help="database sharding: one device only ('always' is "
-                        "not ported yet)")
+                   help="database sharding over the ranks of a "
+                        "torch.distributed.run launch (a lone process is a "
+                        "world of one): 'auto' spills to the J-sharded path "
+                        "when the staged database would exceed ~60%% of one "
+                        "card's memory and there is more than one rank "
+                        "(QPG_HBM_BYTES overrides the card's report); "
+                        "'always' shards; results are bit-identical")
     m.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; raises without a GPU)")
+                   help="torch device (default cuda: cuda:{LOCAL_RANK} "
+                        "under torch.distributed.run; raises without a GPU)")
+    m.add_argument("--dist-backend", choices=["nccl", "gloo"],
+                   help="torch.distributed backend under "
+                        "torch.distributed.run (default: nccl on CUDA, gloo "
+                        "on the CPU; gloo for ranks sharing one card)")
     m.set_defaults(fn=cmd_match)
 
     d = sub.add_parser("decode", help="decode result.npz to BVH")
@@ -1346,7 +1392,13 @@ def main(argv=None):
     tv.add_argument("--resume", action="store_true",
                     help="resume from <out>/latest.pt if present")
     tv.add_argument("--device", default="cuda",
-                    help="torch device (default cuda; raises without a GPU)")
+                    help="torch device (default cuda: cuda:{LOCAL_RANK} "
+                         "under torch.distributed.run; raises without a "
+                         "GPU)")
+    tv.add_argument("--dist-backend", choices=["nccl", "gloo"],
+                    help="torch.distributed backend under "
+                         "torch.distributed.run: the ranks split every "
+                         "batch (default: nccl on CUDA, gloo on the CPU)")
     tv.set_defaults(fn=cmd_train_vqvae)
 
     tp = sub.add_parser("train-pae", help="train the periodic autoencoder")
@@ -1356,7 +1408,13 @@ def main(argv=None):
     tp.add_argument("--epochs", type=int)
     tp.add_argument("--batch-size", type=int, default=32)
     tp.add_argument("--device", default="cuda",
-                    help="torch device (default cuda; raises without a GPU)")
+                    help="torch device (default cuda: cuda:{LOCAL_RANK} "
+                         "under torch.distributed.run; raises without a "
+                         "GPU)")
+    tp.add_argument("--dist-backend", choices=["nccl", "gloo"],
+                    help="torch.distributed backend under "
+                         "torch.distributed.run: the ranks split every "
+                         "batch (default: nccl on CUDA, gloo on the CPU)")
     tp.set_defaults(fn=cmd_train_pae)
 
     te = sub.add_parser("train-end2end", help="train the GRU baseline")
@@ -1366,7 +1424,13 @@ def main(argv=None):
     te.add_argument("--epochs", type=int)
     te.add_argument("--batch-size", type=int, default=32)
     te.add_argument("--device", default="cuda",
-                    help="torch device (default cuda; raises without a GPU)")
+                    help="torch device (default cuda: cuda:{LOCAL_RANK} "
+                         "under torch.distributed.run; raises without a "
+                         "GPU)")
+    te.add_argument("--dist-backend", choices=["nccl", "gloo"],
+                    help="torch.distributed backend under "
+                         "torch.distributed.run: the ranks split every "
+                         "batch (default: nccl on CUDA, gloo on the CPU)")
     te.set_defaults(fn=cmd_train_end2end)
 
     pl = sub.add_parser("plot", help="training curves / phase-manifold / "

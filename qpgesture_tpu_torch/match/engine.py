@@ -24,6 +24,7 @@ scores, and the same random draw order.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Optional, Tuple, Union
 
@@ -35,6 +36,7 @@ from ..device import DeviceLike, resolve_device, to_device
 from ..ops.levenshtein_cuda import levenshtein_matrix
 from ..ops.precision import mm_nt_f32, split_bf16
 from ..ops.ranking import rank, rank_np, tree_sum
+from ..parallel import dist
 from .database import MatchDatabase
 from .geometry import phase_start
 from .oracle import CandidateTable, CodeKNNOracle, OracleResult
@@ -278,6 +280,42 @@ def estimate_devdb_bytes(cfg: MatchConfig, db: MatchDatabase) -> int:
         total += db.txt_feat.size * 4
         total += db.txt_codes.size * 4 + db.txt_blocks.size * 4
     return total
+
+
+def device_hbm_bytes(device: Optional[DeviceLike] = None) -> Optional[int]:
+    """The card's memory in bytes (``torch.cuda.mem_get_info``'s total),
+    or None for the CPU, which reports none. QPG_HBM_BYTES overrides the
+    report, as in the JAX package: the seam that lets the spill branch run
+    (and be tested) where no capacity is reported, and lets operators pin
+    the budget below a shared card's memory. device None: the current card
+    when there is one."""
+    env = os.environ.get("QPG_HBM_BYTES")
+    if env:
+        return int(env)
+    if device is None:
+        if not torch.cuda.is_available():
+            return None
+        device = torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return torch.cuda.mem_get_info(device)[1]
+
+
+def should_shard(cfg: MatchConfig, db: MatchDatabase, group=None,
+                 device: Optional[DeviceLike] = None,
+                 hbm_fraction: float = 0.6) -> bool:
+    """Spill heuristic: shard when the staged database would exceed
+    ``hbm_fraction`` of one card's memory (the rest is headroom for the
+    distance-matrix temporaries, whose peak scales with Q x J) and the
+    group has more than one rank. With no capacity report (the CPU), never
+    spills."""
+    if dist.world_size(group) < 2:
+        return False
+    cap = device_hbm_bytes(device)
+    if cap is None:
+        return False
+    return estimate_devdb_bytes(cfg, db) > hbm_fraction * cap
 
 
 def device_match_db(cfg: MatchConfig, db: MatchDatabase,
@@ -582,20 +620,14 @@ def _solo_resets(Q: int, init_code, init_phase,
     return mask, code, phase
 
 
-def _predict_impl(cfg: MatchConfig, n_steps: int, dev: DeviceDatabase,
-                  devdb: DeviceMatchDB, test_audio, test_context,
-                  rand_bits, reset_mask, reset_code, reset_phase,
-                  clips: int = 1):
-    """C clips (or streams): candidate tables for all their steps at once,
-    then the lane-batched fused scan."""
-    tables = _tables_impl(cfg, devdb, test_audio, test_context)
-    return _fuse_scan_clips(cfg, n_steps, clips, dev, tables, rand_bits,
-                            reset_mask, reset_code, reset_phase)
-
-
 class CodeKNNEngine:
-    """Device engine with the reference engine's semantics. All database
-    tensors live on ``device`` for the engine's lifetime."""
+    """Device engine with the reference engine's semantics. The database
+    tensors live on ``device`` for the engine's lifetime from their first
+    use: the whole database for the single-device paths, or a rank's
+    J-shard for the sharded ones (``predict_sharded`` and the others that
+    take a process group). Either is staged on first use, so an engine
+    whose database exceeds one card's memory can be built and used
+    sharded."""
 
     def __init__(self, cfg: MatchConfig, db: MatchDatabase,
                  device: DeviceLike = "cuda"):
@@ -623,7 +655,43 @@ class CodeKNNEngine:
             freq_rank=torch.as_tensor(np.asarray(freq_rank).astype(np.int32),
                                       device=dev),
             **grids)
-        self.devdb = device_match_db(cfg, db, dev)
+        self._devdb = None
+        self._sharded = None
+
+    @property
+    def devdb(self) -> DeviceMatchDB:
+        """The whole database on the device, staged on first use."""
+        if self._devdb is None:
+            self._devdb = device_match_db(self.cfg, self.db, self.device)
+        return self._devdb
+
+    def sharded_db(self, group=None):
+        """This rank's J-shard of the database on the device
+        (parallel/sharded_match.py), staged on first use for the group."""
+        from ..parallel.sharded_match import shard_match_db
+        key = (id(group), dist.world_size(group), dist.rank(group))
+        if self._sharded is None or self._sharded[0] != key:
+            self._sharded = (key, shard_match_db(self.cfg, self.db,
+                                                 self.device, group))
+        return self._sharded[1]
+
+    def tables(self, ta, tc, sharded: bool = False,
+               group=None) -> DeviceTables:
+        """Phase 1 for device queries: over the whole database on this
+        device, or (sharded) over this rank's shard, combined across the
+        group into the same tables on every rank."""
+        if not sharded:
+            return _tables_impl(self.cfg, self.devdb, ta, tc)
+        from ..parallel.sharded_match import build_sharded_tables
+        return build_sharded_tables(self.cfg, self.sharded_db(group), ta, tc,
+                                    group)
+
+    def scan(self, tables: DeviceTables, n_steps: int, clips: int,
+             rand_bits, resets):
+        """Phase 2: the lane-batched fusion scan of C clips (or streams)
+        over their tables; resets = (reset_mask, reset_code, reset_phase)."""
+        return _fuse_scan_clips(self.cfg, n_steps, clips, self.dev, tables,
+                                rand_bits, *resets)
 
     def _chain_inputs(self, W: int, S: int,
                       rng: np.random.RandomState):
@@ -675,10 +743,12 @@ class CodeKNNEngine:
                        test_context: Optional[np.ndarray] = None,
                        init_code: Optional[int] = None,
                        init_phase: Optional[np.ndarray] = None,
-                       rng: Optional[np.random.RandomState] = None):
+                       rng: Optional[np.random.RandomState] = None,
+                       *, sharded: bool = False, group=None):
         """Device-resident variant: returns (codes (W, 30) int32, phases
         (Q, 8, 16), votes (Q,), (W, S)) as device tensors, for chaining
-        straight into the VQ-VAE decode."""
+        straight into the VQ-VAE decode. sharded: phase 1 over this rank's
+        J-shard of the database, combined across ``group``."""
         cfg = self.cfg
         rng = rng or np.random.RandomState(cfg.seed)
         if init_code is None:
@@ -689,9 +759,9 @@ class CodeKNNEngine:
         W, S = lead.shape[:2]
         rand_np, reset = self._chain_inputs(W, S, rng)
         ta, tc = self.stage_queries(test_audio, test_context)
-        blocks, phases, votes = _predict_impl(
-            cfg, S, self.dev, self.devdb, ta, tc, rand_np,
-            *_solo_resets(W * S, init_code, init_phase, *reset))
+        blocks, phases, votes = self.scan(
+            self.tables(ta, tc, sharded, group), S, 1, rand_np,
+            _solo_resets(W * S, init_code, init_phase, *reset))
         codes = blocks.reshape(W, S * cfg.step_sz)[:, :cfg.num_frames_code]
         return codes.to(torch.int32), phases, votes, (W, S)
 
@@ -715,6 +785,25 @@ class CodeKNNEngine:
                 rng: Optional[np.random.RandomState] = None) -> OracleResult:
         codes, phases, votes, (W, S) = self.predict_device(
             test_audio, test_context, init_code, init_phase, rng)
+        return self._result(codes.cpu().numpy(), phases, votes, W, S)
+
+    def predict_sharded(self, group, test_audio: Optional[np.ndarray],
+                        test_context: Optional[np.ndarray] = None,
+                        init_code: Optional[int] = None,
+                        init_phase: Optional[np.ndarray] = None,
+                        rng: Optional[np.random.RandomState] = None
+                        ) -> OracleResult:
+        """Database-sharded predict over the process group ``group`` (None:
+        the default group; a process outside any group is a world of one).
+        Each rank scores its J-shard (the O(database) work), the per-code
+        tables combine with the tie-preserving two-pass all_reduce(MIN), and
+        the fusion scan runs replicated: every rank returns the same result,
+        bit-identical to predict() with the same inputs. The multi-GPU path
+        for databases past one card's memory; the single-device database is
+        never staged."""
+        codes, phases, votes, (W, S) = self.predict_device(
+            test_audio, test_context, init_code, init_phase, rng,
+            sharded=True, group=group)
         return self._result(codes.cpu().numpy(), phases, votes, W, S)
 
     def _host_tables(self, side: str, mins: np.ndarray, args: np.ndarray,
@@ -847,7 +936,8 @@ class CodeKNNEngine:
                       clip_context: Optional[np.ndarray] = None,
                       init_codes: Optional[np.ndarray] = None,
                       init_phases: Optional[np.ndarray] = None,
-                      rng: Optional[np.random.RandomState] = None) -> list:
+                      rng: Optional[np.random.RandomState] = None,
+                      *, sharded: bool = False, group=None) -> list:
         """Batched serving: match C independent clips together.
 
         clip_audio: (C, W, S, ...) staged queries (same W per clip);
@@ -860,18 +950,33 @@ class CodeKNNEngine:
         non-chaining configs, then rand bits (no-phase aud+txt mode):
         per-clip results equal sequential predict() when the inits (and
         bits) are passed explicitly, not when one rng is shared across both
-        paths in the non-chaining or random-vote configurations."""
-        cfg = self.cfg
+        paths in the non-chaining or random-vote configurations. sharded:
+        phase 1 over this rank's J-shard, combined across ``group``."""
         lead = clip_audio if clip_audio is not None else clip_context
         C, W, S = lead.shape[:3]
         (flat_audio, flat_ctx, reset_mask, reset_code, reset_phase,
          rand_bits) = self._batch_inputs(C, W, S, clip_audio, clip_context,
                                          init_codes, init_phases, rng)
         ta, tc = self.stage_queries(flat_audio, flat_ctx)
-        blocks, phases, votes = _predict_impl(
-            cfg, S, self.dev, self.devdb, ta, tc, rand_bits, reset_mask,
-            reset_code, reset_phase, clips=C)
+        blocks, phases, votes = self.scan(
+            self.tables(ta, tc, sharded, group), S, C, rand_bits,
+            (reset_mask, reset_code, reset_phase))
         return self._batch_unpack(blocks, phases, votes, C, W, S)
+
+    def predict_batch_sharded(self, group,
+                              clip_audio: Optional[np.ndarray],
+                              clip_context: Optional[np.ndarray] = None,
+                              init_codes: Optional[np.ndarray] = None,
+                              init_phases: Optional[np.ndarray] = None,
+                              rng: Optional[np.random.RandomState] = None
+                              ) -> list:
+        """predict_batch with the candidate scoring sharded along J over
+        ``group`` and the fusion scan replicated: predict_batch's semantics
+        at predict_sharded's scale, bit-identical per clip to
+        predict_batch."""
+        return self.predict_batch(clip_audio, clip_context, init_codes,
+                                  init_phases, rng, sharded=True,
+                                  group=group)
 
     # Serving buckets of the JAX package: clip lengths (in 4 s windows)
     # padded up to the next bucket so that XLA compiles one program per

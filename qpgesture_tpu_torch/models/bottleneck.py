@@ -11,8 +11,10 @@ usage / dk). The codebook is the buffer ``bottleneck.level_blocks.0.k``
 them (a JAX train state through ``convert.vqvae_state_dict_from_jax``)
 loads them too, and the trainer's checkpoint stores them explicitly.
 
-One device: the JAX package's cross-replica psum of the batch statistics
-and all-gather of the restart candidates have no counterpart here.
+In data-parallel training (``BottleneckBlock.group``, set by the trainer)
+the batch statistics sum across the group and the restart candidates are
+drawn from the batch all-gathered in rank order, as the JAX package's
+``axis_name`` does (qpgesture_tpu/models/bottleneck.py:98-111).
 """
 from __future__ import annotations
 
@@ -21,8 +23,13 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..parallel.dist import all_gather, all_reduce
+
 
 class BottleneckBlock(nn.Module):
+    # the data-parallel group of the training update (None: one device)
+    group = None
+
     def __init__(self, k_bins: int, emb_width: int):
         super().__init__()
         self.register_buffer("k", torch.zeros(k_bins, emb_width))
@@ -70,7 +77,7 @@ class BottleneckBlock(nn.Module):
         if train:
             state, upd = update_codebook(
                 (self.k, self.k_sum, self.k_elem), flat_d, codes, mu,
-                generator=generator)
+                generator=generator, group=self.group)
             self.set_state(*state)
             metrics.update(upd)
         commit_loss = ((x_d - flat) ** 2).sum() / (N * T * D)
@@ -147,7 +154,7 @@ def init_codebook(x: torch.Tensor, k_bins: int,
 def update_codebook(state, x: torch.Tensor, codes: torch.Tensor, mu: float,
                     *, generator: Optional[torch.Generator] = None,
                     threshold: float = 1.0,
-                    k_rand: Optional[torch.Tensor] = None):
+                    k_rand: Optional[torch.Tensor] = None, group=None):
     """EMA update + dead-code restart (update_k, bottleneck.py:63-94).
 
     state: (k (K, D), k_sum (K, D), k_elem (K,)); x: (M, D) encoder outputs;
@@ -155,6 +162,13 @@ def update_codebook(state, x: torch.Tensor, codes: torch.Tensor, mu: float,
     a row of ``k_rand`` (K, D), by default ``restart_candidates`` of x drawn
     from ``generator``. Returns ((k, k_sum, k_elem), metrics); nothing is
     read back to the host.
+
+    group: the data-parallel group (None: one device). The batch
+    statistics then sum across it, and the restart candidates come from
+    the batch all-gathered in rank order with a generator in the same
+    state on every rank: every rank computes the same codebook, and an
+    N-rank step on contiguous blocks of a batch equals the one-device step
+    on the whole batch.
     """
     k_old, k_sum_old, k_elem_old = state
     k_bins = k_old.shape[0]
@@ -166,7 +180,12 @@ def update_codebook(state, x: torch.Tensor, codes: torch.Tensor, mu: float,
         _k_sum = onehot.T @ x
         _k_elem = onehot.sum(0)
         if k_rand is None:
-            k_rand = restart_candidates(x, k_bins, generator)
+            pool = x if group is None else all_gather(x, group)
+            k_rand = restart_candidates(pool, k_bins, generator)
+        if group is not None:
+            summed = all_reduce(torch.cat((_k_sum, _k_elem[:, None]), 1),
+                                "sum", group)
+            _k_sum, _k_elem = summed[:, :-1], summed[:, -1]
         k_sum = mu * k_sum_old + (1.0 - mu) * _k_sum
         k_elem = mu * k_elem_old + (1.0 - mu) * _k_elem
         usage = (k_elem[:, None] >= threshold).to(x.dtype)

@@ -28,7 +28,7 @@ from torch import nn
 
 from .device import resolve_device, to_device
 from .match.device_staging import stage_context, stage_wavlm, stage_wavvq
-from .match.engine import CodeKNNEngine, _predict_impl, _solo_resets
+from .match.engine import CodeKNNEngine, _solo_resets
 from .match.oracle import CodeKNNOracle
 from .models.vqvae import VQVAE
 from .pipelines.database_builder import context_slots
@@ -44,15 +44,17 @@ def _check_same_device(engine: CodeKNNEngine, **modules) -> None:
 
 @torch.no_grad()
 def _match_decode(engine: CodeKNNEngine, model: VQVAE, ta, tc, S: int,
-                  C: int, rand_bits, resets, data_mean, data_std
+                  C: int, rand_bits, resets, data_mean, data_std,
+                  sharded: bool = False, group=None
                   ) -> Tuple[np.ndarray, np.ndarray]:
     """Device queries of C clips (C*W windows, clip-major) -> (codes (C, W,
     30), poses (C, W*240, 135) denormalized) host arrays. Each clip's code
     string decodes in one pass (window-boundary smoothness through the
-    decoder's receptive field, VisualizeCodebook.py:139-146)."""
+    decoder's receptive field, VisualizeCodebook.py:139-146). sharded: phase
+    1 over this rank's J-shard, combined across ``group``."""
     cfg = engine.cfg
-    blocks, _, _ = _predict_impl(cfg, S, engine.dev, engine.devdb, ta, tc,
-                                 rand_bits, *resets, clips=C)
+    blocks, _, _ = engine.scan(engine.tables(ta, tc, sharded, group), S, C,
+                               rand_bits, resets)
     codes = blocks.reshape(C, -1, S * cfg.step_sz)[..., :cfg.num_frames_code]
     poses = model.decode(codes.reshape(C, -1))
     return (codes.to(torch.int32).cpu().numpy(),
@@ -62,7 +64,8 @@ def _match_decode(engine: CodeKNNEngine, model: VQVAE, ta, tc, S: int,
 def _serve_staged(engine: CodeKNNEngine, model: VQVAE, ta, tc, W: int,
                   S: int, init_code: int, init_phase: Optional[np.ndarray],
                   rng: Optional[np.random.RandomState], data_mean,
-                  data_std) -> Tuple[np.ndarray, np.ndarray]:
+                  data_std, sharded: bool = False, group=None
+                  ) -> Tuple[np.ndarray, np.ndarray]:
     """Device queries of one clip -> (codes (W, 30), poses (W*240, 135)
     denormalized).
 
@@ -75,7 +78,7 @@ def _serve_staged(engine: CodeKNNEngine, model: VQVAE, ta, tc, W: int,
     codes, poses = _match_decode(
         engine, model, ta, tc, S, 1, rand_np,
         _solo_resets(W * S, init_code, init_phase, *reset), data_mean,
-        data_std)
+        data_std, sharded, group)
     return codes[0], poses[0]
 
 
@@ -205,10 +208,23 @@ class RawWavServer:
                              rand_bits, (reset_mask, reset_code, reset_phase),
                              self.data_mean, self.data_std)
 
-    def serve_sharded(self, *args, **kwargs):
-        raise NotImplementedError(
-            "RawWavServer.serve_sharded is not ported yet: it waits for "
-            "the multi-GPU matching path")
+    def serve_sharded(self, group, wav: np.ndarray,
+                      test_context: Optional[np.ndarray] = None,
+                      init_code: int = 0,
+                      init_phase: Optional[np.ndarray] = None,
+                      rng: Optional[np.random.RandomState] = None
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+        """serve() with database-sharded matching over the process group
+        ``group``: every rank runs the encoder and the device staging on the
+        whole request, scores its J-shard of the database, and after the
+        combine runs the fusion scan and the decode replicated. Same codes
+        as serve() with the same rng, on every rank: the multi-GPU raw-wav
+        surface for databases past one card's memory."""
+        ta, tc = self.stage(self.encode(wav), test_context)
+        return _serve_staged(self.engine, self.model, ta, tc, wav.shape[0],
+                             self.n_steps, init_code, init_phase, rng,
+                             self.data_mean, self.data_std, sharded=True,
+                             group=group)
 
 
 def _embed_unique(embed_fn, texts: List[str]) -> np.ndarray:
@@ -345,18 +361,18 @@ class _Streams:
             else np.zeros((S,), np.int32) for i in range(self.n_streams)])
 
     @torch.no_grad()
-    def _advance(self, ta, tc, S: int,
-                 active: Optional[np.ndarray] = None) -> torch.Tensor:
+    def _advance(self, ta, tc, S: int, active: Optional[np.ndarray] = None,
+                 sharded: bool = False, group=None) -> torch.Tensor:
         """One window per stream (device queries (C, S, ...)) -> (C, 30)
         int32 codes on the device; the carried seeds move on, except for
         streams marked inactive, whose lanes still compute and whose seeds
-        and rng stay as they were."""
+        and rng stay as they were. sharded: phase 1 over this rank's
+        J-shard, combined across ``group``."""
         act = self._active(active)
         codes, phases = self._codes_d, self._phases_d
-        blocks, step_phases, _ = _predict_impl(
-            self.cfg, S, self.engine.dev, self.engine.devdb, ta, tc,
-            self._rand_bits(S, act), *_pool_reset_inputs(S, codes, phases),
-            clips=self.n_streams)
+        blocks, step_phases, _ = self.engine.scan(
+            self.engine.tables(ta, tc, sharded, group), S, self.n_streams,
+            self._rand_bits(S, act), _pool_reset_inputs(S, codes, phases))
         out = blocks.reshape(self.n_streams, S * self.cfg.step_sz)[
             :, :self.cfg.num_frames_code]
         # next window's seeds: the last kept code and the final step's
@@ -460,15 +476,16 @@ class StreamingPool(_Streams):
 
     def tick_device(self, test_audio: Optional[np.ndarray],
                     test_context: Optional[np.ndarray] = None,
-                    active: Optional[np.ndarray] = None) -> torch.Tensor:
+                    active: Optional[np.ndarray] = None,
+                    *, sharded: bool = False, group=None) -> torch.Tensor:
         """tick without the download: (C, 30) int32 codes on the device.
-        Nothing in it waits for the card."""
+        Nothing in it waits for the card (sharded: but the combine)."""
         cfg = self.cfg
         ta, tc = self.engine.stage_queries(
             test_audio if cfg.use_aud else None,
             test_context if cfg.use_txt else None)
         S = (ta if ta is not None else tc).shape[1]
-        return self._advance(ta, tc, S, active)
+        return self._advance(ta, tc, S, active, sharded, group)
 
     def tick(self, test_audio: Optional[np.ndarray],
              test_context: Optional[np.ndarray] = None,
@@ -483,10 +500,15 @@ class StreamingPool(_Streams):
         return self.tick_device(test_audio, test_context,
                                 active).cpu().numpy()
 
-    def tick_sharded(self, *args, **kwargs):
-        raise NotImplementedError(
-            "StreamingPool.tick_sharded is not ported yet: it waits for the "
-            "multi-GPU matching path")
+    def tick_sharded(self, group, test_audio: Optional[np.ndarray],
+                     test_context: Optional[np.ndarray] = None,
+                     active: Optional[np.ndarray] = None) -> np.ndarray:
+        """tick() with database-sharded candidate scoring over the process
+        group ``group`` and the per-stream fusion replicated on every rank.
+        Bit-identical to tick() with the same inputs; the carried seeds are
+        the ones tick() carries, so the two can interleave."""
+        return self.tick_device(test_audio, test_context, active,
+                                sharded=True, group=group).cpu().numpy()
 
 
 class StreamingRawWavSession(_Streams):

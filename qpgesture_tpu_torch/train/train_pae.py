@@ -1,4 +1,5 @@
-"""PAE trainer on one GPU: AdamW + cosine warm restarts on velocity windows.
+"""PAE trainer: AdamW + cosine warm restarts on velocity windows, on one GPU
+or data-parallel over a process group.
 
 The reference envelope (codebook/PAE.py:273-474), as the JAX package's
 ``train/train_pae.py`` sets it: AdamW(1e-4, weight decay 1e-4),
@@ -9,6 +10,12 @@ the learning rate is set each update from the update count. The
 BatchNorms (``models/batchnorm``) update their running statistics in
 training as flax's do. A step reads nothing back to the host; its
 convolutions run under ``device.cudnn_autotune``.
+
+Data-parallel as the JAX trainer (train_pae.py:77-105): each rank takes
+its contiguous block of the batch, and its BatchNorms normalise with that
+block's statistics (the JAX step runs flax's BatchNorm per shard, without
+an axis name); the gradients and the loss are averaged across the group,
+and so are the running statistics after the step.
 """
 from __future__ import annotations
 
@@ -19,9 +26,11 @@ import torch
 
 from ..core.config import PAEConfig
 from ..device import DeviceLike, cudnn_autotune, resolve_device, to_device
+from ..models.batchnorm import average_running_stats
 from ..models.pae import PAE, velocity_input
+from ..parallel.dist import data_parallel_group, pmean
 from .checkpoints import Checkpointed
-from .train_vqvae import seeded_init
+from .train_vqvae import DataParallel, average_gradients, seeded_init
 
 
 def cyclic_cosine_restarts(base_lr: float, steps_per_epoch: int,
@@ -56,11 +65,14 @@ def pae_loss(model: PAE, pose_windows: torch.Tensor) -> torch.Tensor:
     return model.cfg.loss_weight * ((y - x) ** 2).mean()
 
 
-class PAETrainer(Checkpointed):
-    """Owns the PAE (on ``device``), AdamW and the update count."""
+class PAETrainer(DataParallel, Checkpointed):
+    """Owns the PAE (on ``device``), AdamW and the update count. ``group``:
+    the process group to train data-parallel over (None: the default group,
+    or one device outside any group)."""
 
     def __init__(self, cfg: PAEConfig, steps_per_epoch: int = 1,
-                 device: DeviceLike = "cuda", seed: int = 0):
+                 device: DeviceLike = "cuda", seed: int = 0, group=None):
+        self.set_group(data_parallel_group(group))
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = seeded_init(lambda: PAE(cfg, device="cpu"),
@@ -77,13 +89,23 @@ class PAETrainer(Checkpointed):
         return to_device(batch, self.device, torch.float32)
 
     def train_step(self, pose_windows) -> torch.Tensor:
-        """One update on (B, frames, C) pose windows; returns the loss as a
-        device tensor."""
+        """One update on (B, frames, C) pose windows (this rank takes its
+        block of them); returns the loss as a device tensor, averaged across
+        the group."""
+        return self.train_block(self.shard(pose_windows))
+
+    def train_block(self, block) -> torch.Tensor:
+        """train_step on this rank's block of the batch (the whole batch
+        on one device)."""
         self.model.train()
         with cudnn_autotune():
-            loss = pae_loss(self.model, self._input(pose_windows))
+            loss = pae_loss(self.model, self._input(block))
             self.opt.zero_grad(set_to_none=True)
             loss.backward()
+        if self.group is not None:
+            average_gradients(list(self.model.parameters()), self.group)
+            average_running_stats(self.model, self.group)
+            loss, = pmean([loss.detach()], self.group)
         lr = self.schedule(self.step)
         for group in self.opt.param_groups:
             group["lr"] = lr
@@ -94,4 +116,6 @@ class PAETrainer(Checkpointed):
     @torch.no_grad()
     def eval_step(self, pose_windows) -> torch.Tensor:
         self.model.eval()
-        return pae_loss(self.model, self._input(pose_windows))
+        loss = pae_loss(self.model, self._input(self.shard(pose_windows)))
+        return pmean([loss], self.group)[0] if self.group is not None \
+            else loss

@@ -168,6 +168,38 @@ def test_engine_on_card_matches_cpu(cuda, preset):
         np.testing.assert_array_equal(got.phases, want.phases)
 
 
+@pytest.mark.parametrize("world,backend", [(1, "nccl"), (2, "gloo")])
+@pytest.mark.parametrize("preset", ["wavvq", "shipped"])
+def test_predict_sharded_on_card_matches_one_device(cuda, preset, world,
+                                                    backend):
+    """predict_sharded in a process group on the card (one NCCL rank, or
+    two gloo ranks sharing cuda:0): every rank's codes, phases and votes
+    equal the single-device predict; K1 runs on each wavvq shard."""
+    import torch_dist_cases
+    from qpgesture_tpu_torch.parallel.dist import spawn
+    rng = np.random.RandomState(12)
+    fx = make_fixture(rng, n_seq=7, n_test=3, codebook=64)
+    cfg = dataclasses.replace(MATCH_PRESETS[preset], codebook_size=64)
+    db = stage_database(cfg, fx["bundle"], fx["codes"], fx["signature"],
+                        wavlm=fx["wavlm"], wavvq=fx["wavvq"])
+    ta = stage_test_audio(cfg, db, wavlm=fx["test_wavlm"],
+                          wavvq=fx["test_wavvq"])
+    tc = stage_test_context(db, fx["test_context"])
+    want = CodeKNNEngine(cfg, db, device=cuda).predict(
+        ta, tc, rng=np.random.RandomState(cfg.seed))
+    ranks = spawn(torch_dist_cases.run, world, ({"p": (
+        "on_device", (cfg, db, ta, tc, cfg.seed, "cuda:0"))},),
+        backend=backend)
+    for r in ranks:
+        codes, phases, votes, k1 = r["p"]
+        np.testing.assert_array_equal(codes, want.codes)
+        np.testing.assert_array_equal(phases, want.phases)
+        assert (votes is None) == (want.votes is None)
+        if votes is not None:
+            np.testing.assert_array_equal(votes, want.votes)
+        assert k1 >= 1 if preset == "wavvq" else k1 == 0
+
+
 def _wavvq_engines(cuda, n_test=4):
     rng = np.random.RandomState(14)
     fx = make_fixture(rng, n_seq=6, n_test=n_test, codebook=64)

@@ -39,7 +39,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
               "match.gesture_knn", "match.control", "motion.features",
               "utils.flax_msgpack", "models.simple_vqvae", "models.seq2seq",
               "pipelines.trinity", "render.analytics", "render.plots",
-              "render.visualize", "utils.devtime", "utils.profiling"):
+              "render.visualize", "utils.devtime", "utils.profiling",
+              "parallel", "parallel.dist", "parallel.sharded_match"):
         assert f"qpgesture_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -200,13 +201,21 @@ def test_entry_points_default_to_cuda(tmp_path):
         main(["train-fgd", "--data", missing, "--out", missing])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["evaluate", "--generated", missing, "--reference", missing])
-    # one GPU: a data-parallel mesh asks for what is not ported
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    # the data-parallel width is the group's world size (1 here): a mesh
+    # shape that says otherwise raises, and so do two ranks on one card
+    # under NCCL, with a message that names gloo
+    with pytest.raises(ValueError, match="world size"):
         VQVAETrainer(VQVAEConfig(width=8, emb_width=8, l_bins=8, depth=1),
                      TrainConfig(mesh_shape=(2,)), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="world size"):
         ResyncTrainer(ResyncConfig(), 5, 9, 32, mesh_shape=(2, 2),
                       device="cpu")
+    from qpgesture_tpu_torch.parallel.dist import check_backend
+    with pytest.raises(ValueError, match="gloo"):
+        check_backend("nccl", torch.device("cuda", 0),
+                      torch.cuda.device_count() + 1)
+    with pytest.raises(ValueError, match="gloo"):
+        check_backend("nccl", torch.device("cpu"), 1)
 
     # SimpleVQVAE, Seq2Seq, the VQ-VAE below "highest" and from a JAX
     # msgpack file, and build-db --dataset trinity

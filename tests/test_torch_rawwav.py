@@ -186,13 +186,20 @@ def test_rawwav_server_matches_jax_and_host_path(preset):
 
 
 def test_rawwav_server_rejects_mfcc_modes_and_batch():
-    """MFCC modes are refused; serve_batch is ported (tests/
-    test_torch_batch.py), the multi-GPU serve_sharded is not."""
+    """MFCC modes are refused; serve_sharded outside any process group is a
+    world of one and gives serve()'s codes and poses (the multi-rank cases:
+    tests/test_torch_parallel.py)."""
     rng, fx, cfg, _, pdb, vq = _setup("wavvq", 59)
     server = RawWavServer(PortEngine(port_config(cfg), pdb, device="cpu"),
                           vq, _port_vqw2v())
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        server.serve_sharded(None, np.zeros((2, 64000), np.int16))
+    wav = (rng.randn(2, 64000) * 3000).astype(np.int16)
+    want = server.serve(wav, fx["test_context"][:2], init_code=3,
+                        rng=np.random.RandomState(cfg.seed))
+    got = server.serve_sharded(None, wav, fx["test_context"][:2],
+                               init_code=3,
+                               rng=np.random.RandomState(cfg.seed))
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
     mcfg = port_config(dataclasses.replace(MATCH_PRESETS["mfcc"],
                                            codebook_size=32))
     mdb = port_db.stage_database(mcfg, fx["bundle"], fx["codes"],

@@ -142,14 +142,22 @@ def test_streaming_pool_active_mask_and_reset(preset):
 
 
 def test_streaming_rejects_nonchaining_and_sharded_tick():
+    """Non-chaining configs are refused; tick_sharded outside any process
+    group is a world of one, interleaves with tick and carries the same
+    seeds (the multi-rank cases: tests/test_torch_parallel.py)."""
     _, peng, _, _ = _engines("mfcc")
     with pytest.raises(ValueError, match="window-chaining"):
         port_serve.StreamingSession(peng)
     with pytest.raises(ValueError, match="window-chaining"):
         port_serve.StreamingPool(peng, 2)
     _, peng, ta, tc = _engines("wavvq")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        port_serve.StreamingPool(peng, 2).tick_sharded(None, ta[:2], tc[:2])
+    a, b = port_serve.StreamingPool(peng, 2), port_serve.StreamingPool(peng, 2)
+    for w in range(2):
+        args = (ta[w:w + 2], tc[w:w + 2])
+        got = a.tick_sharded(None, *args) if w == 0 else a.tick(*args)
+        np.testing.assert_array_equal(got, b.tick(*args))
+    for x, y in zip(a.state(), b.state()):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("preset", ["wavvq", "shipped"])

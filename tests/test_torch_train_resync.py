@@ -278,7 +278,11 @@ def test_train_iteration_draws_eps_and_keeps_losses_on_device():
     b = ResyncTrainer(ResyncConfig(), M, J, T, device="cpu", seed=4)
     assert torch.equal(a.draw_eps(B), b.draw_eps(B))
     assert a.draw_eps(B).shape == (B, 1, 1)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    # the data-parallel width is the group's world size (1 outside a
+    # group): a mesh_shape of 1 is that, one of 2 contradicts it
+    assert ResyncTrainer(ResyncConfig(), M, J, T, mesh_shape=(1,),
+                         device="cpu").group is None
+    with pytest.raises(ValueError, match="world size"):
         ResyncTrainer(ResyncConfig(), M, J, T, mesh_shape=(2,), device="cpu")
 
 
