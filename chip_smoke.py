@@ -110,11 +110,19 @@ counts set to 0 just before it and read just after:
                group also with the grid cap at 0; one
                data-parallel step of each trainer in 2 ranks against one
                device; match --sharded always / auto and train-vqvae under
-               torch.distributed.run.
+               torch.distributed.run;
+  phase 21     the port's bench (qpgesture_tpu_torch/bench.py, the JAX
+               package's bench.py sections) in this process: wavvq (K1) and
+               wavlm serving with their device breakdowns, 16 batched
+               clips, raw-wav wavvq and WavLM-Large at "default" (bfloat16
+               K2), the VQ-VAE step at both precisions, raw-pose search,
+               PAE extraction; every section present, wavvq codes against
+               the CPU port.
 
-It prints one line per check. The last three lines are the card's name and
-power limit, one JSON object with every kernel's launches, error and
-times, and ``{"ok": true, "device": {...}}``. Any failure exits nonzero
+It prints one line per check. The last four lines are the bench's compact
+JSON line, the card's name and power limit, one JSON object with every
+kernel's launches, error and times, and ``{"ok": true, "device":
+{...}}``. Any failure exits nonzero
 before that last line; so does a machine without a CUDA device, and a
 directory that holds this script without the package.
 
@@ -342,18 +350,11 @@ def device_ms(fn, n: int, reps: int = 5, warmup: int = 3) -> float:
 def log_profile(phase: str, fn) -> dict:
     """Profile one call of fn: device busy time, idle share, top kernels.
     Returns {kernel name: (total device us, count)}."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    log(f"{phase} profile: device busy {busy_us / 1e3:.3f} ms of "
-        f"{wall_us / 1e3:.3f} ms wall (idle share "
-        f"{1 - busy_us / wall_us:.3f}); top kernels:")
+    from qpgesture_tpu_torch.utils.profiling import device_busy
+    busy_s, wall_s, kernels = device_busy(fn)
+    log(f"{phase} profile: device busy {busy_s * 1e3:.3f} ms of "
+        f"{wall_s * 1e3:.3f} ms wall (idle share "
+        f"{1 - busy_s / wall_s:.3f}); top kernels:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"    {e.self_device_time_total / 1e3:9.4f} ms x{e.count:5d} "
             f"{e.key[:90]}")
@@ -4952,6 +4953,128 @@ def phase20(dev, rng, tmp: str, vq_cpu, data_mean, data_std) -> tuple:
     return k1, k2
 
 
+# Phase 21's budget (QPG_BENCH_BUDGET_S): room for every section, so that a
+# section the budget skips fails the phase instead of shortening it.
+P21_BUDGET_S = 900
+# What each section of the bench's line must hold.
+P21_KEYS = {
+    ("wavvq",): ("gest_s_per_s", "p50_ms", "vs_baseline", "device",
+                 "batched_16clip"),
+    ("wavvq", "device"): ("device_ms", "tables_ms", "fuse_scan_ms",
+                          "decode_ms", "lev_gcells_per_s", "idle_share"),
+    ("wavvq", "batched_16clip"): ("gest_s_per_s", "device_ms",
+                                  "gest_s_per_device_s"),
+    ("wavlm",): ("gest_s_per_s", "p50_ms", "vs_baseline", "device"),
+    ("wavlm", "device"): ("device_ms", "tables_ms", "fuse_scan_ms",
+                          "decode_ms", "tflops_effective", "mfu_bf16_peak",
+                          "tables_ms_high", "tables_ms_default",
+                          "idle_share"),
+    ("rawwav", "wavvq"): ("e2e_p50_ms", "device_ms", "enc_ms", "match_ms",
+                          "gest_s_per_s", "mfu_bf16_peak"),
+    ("rawwav", "wavlm_split:default"): ("e2e_p50_ms", "device_ms", "enc_ms",
+                                        "match_ms", "gest_s_per_s",
+                                        "mfu_bf16_peak"),
+    ("train_vqvae",): ("step_ms_p50", "device_ms_per_step",
+                       "windows_per_device_s", "mfu_bf16_peak",
+                       "bf16_variant"),
+    ("train_vqvae", "bf16_variant"): ("device_ms_per_step",
+                                      "windows_per_device_s",
+                                      "mfu_bf16_peak"),
+    ("rawpose_knn_batch16",): ("p50_ms", "gest_s_per_s", "n_seqs"),
+    ("pae_extract",): ("frames", "p50_ms", "frames_per_s"),
+}
+
+
+def walk(d, path=()):
+    """(path, leaf) of every leaf of a nested dict / list."""
+    if isinstance(d, dict):
+        for k, v in d.items():
+            yield from walk(v, path + (k,))
+    elif isinstance(d, list):
+        for i, v in enumerate(d):
+            yield from walk(v, path + (i,))
+    else:
+        yield path, d
+
+
+def phase21_bench(kind: str) -> tuple:
+    """Phase 21: the port's bench (qpgesture_tpu_torch/bench.py) in this
+    process, at its own shapes with the default raw-wav modes, under a
+    budget that fits every section. Its line must hold every section with
+    its keys, no skipped / pending / error, finite numbers and the card's
+    name; its wavvq request's codes must equal the CPU port's predict on
+    the same staged data. Returns (compact line, K1 launches, K2
+    launches)."""
+    import numpy as np
+    from qpgesture_tpu_torch import bench
+    from qpgesture_tpu_torch.core.constants import POSE_DIM
+    from qpgesture_tpu_torch.ops import flash_attention_cuda as K2
+    from qpgesture_tpu_torch.ops import levenshtein_cuda as K1
+
+    saved = {k: os.environ.get(k) for k in ("QPG_BENCH_BUDGET_S",
+                                            "QPG_BENCH_RAWWAV_MODES")}
+    os.environ["QPG_BENCH_BUDGET_S"] = str(P21_BUDGET_S)
+    os.environ.pop("QPG_BENCH_RAWWAV_MODES", None)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            K1.launches = K2.launches = 0
+            t0 = time.time()
+            full = bench.main(["--full-out",
+                               os.path.join(tmp, "bench_torch_full.json")])
+            k1, k2 = K1.launches, K2.launches
+            bench_s = time.time() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    compact = bench._compact(full)
+    line = json.dumps(compact)
+    faults = [k for k in ("skipped", "pending") if k in full]
+    faults += [p for p, _ in walk(full) if "error" in p]
+    if full.get("value") is None or full["device_kind"] != kind:
+        faults.append(f"value {full.get('value')}, device_kind "
+                      f"{full.get('device_kind')!r}")
+    for path, keys in P21_KEYS.items():
+        sec = full
+        for k in path:
+            sec = sec.get(k, {}) if isinstance(sec, dict) else {}
+        missing = [k for k in keys if k not in sec]
+        if missing:
+            faults.append(f"{'.'.join(path)} lacks {missing}")
+    bad = [(p, x) for p, x in walk(compact)
+           if isinstance(x, (int, float)) and not isinstance(x, bool)
+           and not (np.isfinite(x) and x >= 0)]
+    if bad:
+        faults.append(f"numbers not finite or negative: {bad}")
+    if faults:
+        raise SystemExit(f"phase 21 bench: {faults}\n{line}")
+    if not (k1 and k2):
+        raise SystemExit(f"phase 21 launched K1 {k1}, K2 {k2} times")
+
+    # the wavvq request's codes against the CPU port on the same data: the
+    # bench's draws in order (the database, the decoder's codebook windows,
+    # the wavvq mode's staging)
+    rng = np.random.RandomState(0)
+    bundle, codes, signature = bench._build_common(rng, bench.J)
+    rng.randn(2, 240, POSE_DIM)
+    _, _, engine, ta, tc = bench._stage_mode(
+        "wavvq", rng, bench.J, bench.W, bundle, codes, signature,
+        device="cpu")
+    want = engine.predict(ta, tc, init_code=bench.INIT_CODE,
+                          init_phase=np.zeros((8, 16), np.float32)).codes
+    got = np.asarray(full["wavvq"]["codes"])
+    if not np.array_equal(got, want):
+        raise SystemExit(f"phase 21: the bench's wavvq codes differ from "
+                         f"the CPU port's in {int((got != want).sum())} of "
+                         f"{want.size}")
+    log(f"phase 21 bench: {bench_s:.1f} s in bench.main, every section "
+        f"with its keys; wavvq codes == CPU port ({want.shape}); launches "
+        f"K1 {k1}, K2 {k2}")
+    return line, k1, k2
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5344,6 +5467,11 @@ def main() -> int:
     k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
     phase_wall("phase 20")
 
+    # -- phase 21: the port's bench ------------------------------------------
+    bench_line, k1, k2 = phase21_bench(kind)
+    k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
+    phase_wall("phase 21")
+
     # -- the kernels line and the result ------------------------------------
     kernels_line = {"kernels": [{
         "name": "levenshtein_matrix",
@@ -5366,6 +5494,7 @@ def main() -> int:
         **k2_line,
     }]}
     log(f"total {time.time() - t_start:.1f} s")
+    print(bench_line)
     print(smi)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

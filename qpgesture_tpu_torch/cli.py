@@ -19,6 +19,7 @@ Subcommands mirror the reference package's entry points:
   train-fgd      the feature-space FGD extractor              -> checkpoint file
   evaluate       Hellinger + FGD between motion sets          -> one JSON line
   plot           training curves, phase manifold, debug views -> PNG / video
+  bench          the headline benchmark on the card (bench.py)  -> JSON lines
 
 They take the reference package's flags; those that run a model also take
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch paths).
@@ -1119,6 +1120,11 @@ def cmd_plot(args):
         print(f"wrote {w}")
 
 
+def cmd_bench(args):
+    from .bench import run
+    return run(args)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="qpgesture_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -1500,8 +1506,15 @@ def main(argv=None):
                     help="torch device (default cuda; raises without a GPU)")
     tr.set_defaults(fn=cmd_train_resync)
 
+    from .bench import add_arguments as bench_arguments
+    b = sub.add_parser("bench", help="the headline benchmark on one CUDA "
+                                     "card (no --device: it measures the "
+                                     "card)")
+    bench_arguments(b)
+    b.set_defaults(fn=cmd_bench)
+
     args = p.parse_args(argv)
-    args.fn(args)
+    return args.fn(args)
 
 
 if __name__ == "__main__":

@@ -144,15 +144,17 @@ class RawWavServer:
 
     @torch.no_grad()
     def encode(self, wav: np.ndarray) -> torch.Tensor:
-        """(W, n_samples) int16 or float windows -> the encoder's output on
-        the device. int16 arrives as int16 and becomes wav / 32768 there."""
-        x = to_device(np.asarray(wav), self.engine.device)
+        """(W, n_samples) int16 or float windows (host array or tensor) ->
+        the encoder's output on the device. int16 arrives as int16 and
+        becomes wav / 32768 there."""
+        x = to_device(wav, self.engine.device)
         x = x.float() / 32768.0 if not x.is_floating_point() else x.float()
         return self.encoder(x)
 
     def stage(self, enc: torch.Tensor,
               test_context: Optional[np.ndarray]):
-        """Encoder output (+ host context) -> device queries (ta, tc)."""
+        """Encoder output (+ context, a host array or a tensor) -> device
+        queries (ta, tc)."""
         cfg = self.engine.cfg
         geom = self.engine.db.geom
         if cfg.audio_mode == "wavvq_feat":
@@ -161,7 +163,7 @@ class RawWavServer:
             ta = stage_wavlm(cfg, geom, enc)
         tc = None
         if cfg.use_txt:
-            tc = stage_context(geom, to_device(np.asarray(test_context),
+            tc = stage_context(geom, to_device(test_context,
                                                self.engine.device))
         return ta, tc
 

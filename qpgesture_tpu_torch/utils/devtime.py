@@ -171,7 +171,8 @@ def cost_analysis_flops(fn: Callable, *args, **kwargs) -> Tuple[float, object]:
     """(floating-point operations, result) of one call ``fn(*args,
     **kwargs)``, counted by torch's per-operator formulas (convolutions,
     matrix products, attention; elementwise operations count 0). The call
-    runs, side effects included. Works on any device."""
+    runs, side effects included. Works on any device. A hand-written
+    kernel (K1, K2) launches outside torch's operators: it counts 0."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils.flop_counter import flop_registry
 
@@ -183,6 +184,12 @@ def cost_analysis_flops(fn: Callable, *args, **kwargs) -> Tuple[float, object]:
             out = func(*args, **kwargs)
             formula = flop_registry.get(func._overloadpacket)
             if formula is not None:
+                if func._overloadname == "dtype":
+                    # mm.dtype / bmm.dtype (out_dtype) pass their output
+                    # type positionally, where torch's formulas take
+                    # out_shape
+                    args = tuple(a for a in args
+                                 if not isinstance(a, torch.dtype))
                 self.flops += formula(*args, **kwargs, out_val=out)
             return out
 

@@ -9,7 +9,7 @@ import json
 import time
 from collections import defaultdict
 from dataclasses import dataclass, field
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 
 @dataclass
@@ -66,6 +66,24 @@ def device_trace(log_dir: str) -> Iterator[None]:
                  on_trace_ready=tensorboard_trace_handler(log_dir)):
         yield
         _sync()
+
+
+def device_busy(fn) -> Tuple[float, float, list]:
+    """One call of ``fn`` under ``torch.profiler`` with CPU and CUDA
+    activity: (device busy seconds, wall seconds, the CUDA kernels'
+    ``key_averages()`` entries). Busy is the kernels' summed self time on
+    the device; 1 - busy / wall is the device's idle share over the call,
+    so ``fn`` must end in a synchronise (a host copy does)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall_s = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    return busy_s, wall_s, kernels
 
 
 def block_and_time(fn, *args, n: int = 1, **kwargs):

@@ -828,3 +828,17 @@ def test_device_timing_on_card(cuda):
     assert devtime.measure_link_s() > 0
     assert devtime.peak_flops_per_s("bfloat16")[0] == \
         torch.cuda.get_device_name()
+
+
+def test_bench_rawpose_and_pae_on_card(cuda):
+    """The bench's raw-pose and PAE sections at their own shapes: each
+    returns the JAX bench's keys with positive times, as JSON."""
+    import json
+    from qpgesture_tpu_torch import bench
+    rng = np.random.RandomState(0)
+    rawpose = json.loads(json.dumps(bench._bench_rawpose(rng)))
+    pae = json.loads(json.dumps(bench._bench_pae(rng)))
+    assert set(rawpose) == {"p50_ms", "gest_s_per_s", "n_seqs"}
+    assert rawpose["n_seqs"] == 16 and rawpose["p50_ms"] > 0
+    assert set(pae) == {"frames", "p50_ms", "frames_per_s"}
+    assert pae["frames"] == bench.PAE_FRAMES and pae["p50_ms"] > 0

@@ -95,3 +95,18 @@ def test_flops_of_a_double_backward():
 
     flops, _ = devtime.cost_analysis_flops(penalty_step)
     assert flops > 2 * one and flops % one == 0
+
+
+def test_flops_of_products_with_float32_output():
+    """The low precisions' GEMMs (ops/precision.py::mm_f32: mm / bmm with
+    out_dtype on the card; meta tensors here, which the CPU's kernels lack)
+    count 2 * M * N * K (per batch)."""
+    bf16 = dict(dtype=torch.bfloat16, device="meta")
+    a, b = torch.empty(4, 8, **bf16), torch.empty(8, 3, **bf16)
+    flops, y = devtime.cost_analysis_flops(
+        lambda: torch.mm(a, b, out_dtype=torch.float32))
+    assert flops == 2 * 4 * 3 * 8 and y.dtype == torch.float32
+    a, b = torch.empty(2, 4, 8, **bf16), torch.empty(2, 8, 3, **bf16)
+    flops, y = devtime.cost_analysis_flops(
+        lambda: torch.bmm(a, b, out_dtype=torch.float32))
+    assert flops == 2 * 2 * 4 * 3 * 8 and y.dtype == torch.float32

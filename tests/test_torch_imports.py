@@ -40,7 +40,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
               "utils.flax_msgpack", "models.simple_vqvae", "models.seq2seq",
               "pipelines.trinity", "render.analytics", "render.plots",
               "render.visualize", "utils.devtime", "utils.profiling",
-              "parallel", "parallel.dist", "parallel.sharded_match"):
+              "parallel", "parallel.dist", "parallel.sharded_match",
+              "bench"):
         assert f"qpgesture_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
