@@ -118,6 +118,21 @@ counts set to 0 just before it and read just after:
                K2), the VQ-VAE step at both precisions, raw-pose search,
                PAE extraction; every section present, wavvq codes against
                the CPU port.
+  phase 22     the port's examples (qpgesture_tpu_torch/examples/):
+               parity_soak over 9 presets x 5 fixtures and
+               chip_parity_sweep (gesture KNN, the 3600-frame long clip
+               against the CPU port) with 0 mismatches against the oracle,
+               then the sweep at the low cosine precisions and residencies
+               (differing codes reported); tie_divergence_sweep (40
+               fixtures, K1) against the CPU port; scale_study for wavvq
+               at J = 1024 / 4096 / 16384 and wavlm at 1024 (bytes
+               against the shapes, wavvq codes against the CPU port at
+               1024 and 16384); streaming_soak (60 pushes, 20 ticks of 16
+               streams, both presets); serve_production (bucketed == solo,
+               codes against the CPU port); train_campaign in subprocesses
+               (4 epochs killed after 2 with exit 42, resumed, post-eval);
+               demo_synthetic to a BVH; rawwav_latency at "highest" (K2
+               float32) and "default" (K2 bfloat16) with its agreement.
 
 It prints one line per check. The last four lines are the bench's compact
 JSON line, the card's name and power limit, one JSON object with every
@@ -5075,6 +5090,312 @@ def phase21_bench(kind: str) -> tuple:
     return line, k1, k2
 
 
+# -- phase 22: the port's examples (qpgesture_tpu_torch/examples/) ----------
+P22_SOAK_FIXTURES = 5        # parity_soak fixtures a preset
+P22_SWEEP_FIXTURES = 3       # chip_parity_sweep fixtures a preset
+# the sweep below "highest" / float32: (cosine_precision, feat_dtype)
+P22_SWEEPS = (("high", "float32"), ("default", "float32"),
+              ("highest", "bfloat16"), ("highest", "float16"))
+P22_TIE_FIXTURES = 40
+# the scale study's sizes; wavlm's are cut from the top for the phase's
+# budget: J=16384's host draw alone takes ~100 s, J=4096 ~46 s in all
+# (python -m qpgesture_tpu_torch.examples.scale_study runs any size)
+P22_SCALE = {"wavvq": (1024, 4096, 16384), "wavlm": (1024,)}
+P22_SCALE_CPU_J = (1024, 16384)  # wavvq sizes whose codes the CPU checks
+P22_STREAM_WINDOWS = 60
+P22_POOL_TICKS = 20
+P22_POOL_STREAMS = 16
+P22_CAMPAIGN_EPOCHS, P22_CAMPAIGN_KILL, P22_CAMPAIGN_EVERY = 4, 2, 2
+P22_CAMPAIGN_TIMEOUT_S = 600
+P22_RAWWAV = (("wavlm", False), ("wavlm_split:default", True))
+_DTYPE_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2}
+
+
+def reckoned_db_bytes(cfg, db) -> int:
+    """The staged database's bytes from the host database's shapes: the
+    audio features at the residency's width (int32 strings for wavvq), the
+    text features in float32, the index tables (codes, blocks, window
+    starts) in int64."""
+    n = 0
+    if cfg.use_aud:
+        n += db.aud_strings.size * 4 if cfg.audio_mode == "wavvq_feat" \
+            else db.aud_feat.size * _DTYPE_BYTES[cfg.feat_dtype]
+        n += 8 * (db.aud_codes.size + db.aud_blocks.size
+                  + len(db.aud_frames))
+    if cfg.use_txt:
+        n += db.txt_feat.size * 4
+        n += 8 * (db.txt_codes.size + db.txt_blocks.size
+                  + len(db.txt_frames))
+    return n
+
+
+def phase22_parity(dev: str) -> dict:
+    """parity_soak (every preset x P22_SOAK_FIXTURES) and
+    chip_parity_sweep at "highest" / float32 (with the gesture KNN and the
+    long clip) on the card: 0 mismatches against the oracle, the long
+    clip's codes equal to the CPU port's; then the sweep below "highest",
+    its differing codes reported."""
+    import numpy as np
+    from qpgesture_tpu_torch.examples import chip_parity_sweep, parity_soak
+    quiet = lambda s: None
+    bad, rows = parity_soak.run(P22_SOAK_FIXTURES, dev, log=quiet)
+    log(f"phase 22 parity_soak: {len(rows)} runs ({len(parity_soak.PRESETS)}"
+        f" presets x {P22_SOAK_FIXTURES}), {bad} mismatches")
+    if bad:
+        raise SystemExit(f"phase 22 parity_soak: {bad} mismatches: "
+                         f"{[r for r in rows if r['n_diff']]}")
+    bad, rows = chip_parity_sweep.run(P22_SWEEP_FIXTURES, device=dev,
+                                      log=quiet)
+    long_row = rows[-1]
+    cpu_codes, _ = chip_parity_sweep.long_clip_codes("cpu")
+    gesture_err = max(r["max_abs_err"] for r in rows if "max_abs_err" in r)
+    log(f"phase 22 chip_parity_sweep highest/float32: {len(rows)} runs, "
+        f"{bad} mismatches; gesture KNN max_abs_err {gesture_err:.3e} (tol "
+        f"{chip_parity_sweep.GESTURE_ATOL}); long clip "
+        f"{long_row['codes'].shape} n_diff {long_row['n_diff']}, == CPU "
+        f"port: {np.array_equal(long_row['codes'], cpu_codes)}")
+    if bad or not np.array_equal(long_row["codes"], cpu_codes):
+        raise SystemExit(f"phase 22 chip_parity_sweep: {bad} mismatches, "
+                         f"long clip == CPU port: "
+                         f"{np.array_equal(long_row['codes'], cpu_codes)}")
+    diffs = {}
+    for prec, fdt in P22_SWEEPS:
+        n_bad, rows = chip_parity_sweep.run(P22_SWEEP_FIXTURES, prec, fdt,
+                                            dev, log=quiet)
+        key = f"{prec}/{fdt}"
+        # a preset's fixture selects 2 windows x 30 codes
+        diffs[key] = {"runs_mismatched": n_bad,
+                      "codes_differing": sum(r.get("n_diff", 0)
+                                             for r in rows),
+                      "codes": sum(r["codes"].size if "codes" in r else 60
+                                   for r in rows if "n_diff" in r)}
+        log(f"phase 22 chip_parity_sweep {key}: {n_bad} runs mismatched, "
+            f"{diffs[key]['codes_differing']} of {diffs[key]['codes']} codes "
+            f"differ from the float32 oracle (reported, not gated)")
+    return diffs
+
+
+def phase22_ties(dev: str) -> dict:
+    """tie_divergence_sweep on the card against the CPU port's on the same
+    fixtures (one host: NumPy's introsort ties)."""
+    from qpgesture_tpu_torch.examples import tie_divergence_sweep
+    quiet = lambda s: None
+    got = tie_divergence_sweep.main(P22_TIE_FIXTURES, dev, log=quiet)
+    want = tie_divergence_sweep.main(P22_TIE_FIXTURES, "cpu", log=quiet)
+    log(f"phase 22 tie_divergence_sweep: {json.dumps(got)}; == CPU port: "
+        f"{got == want}")
+    if got != want:
+        raise SystemExit(f"phase 22 tie sweep: card {got} != CPU {want}")
+    return got
+
+
+def phase22_scale(dev: str, smi: str) -> list:
+    """scale_study at P22_SCALE: one JSON line a size; the staged bytes
+    against the shapes, resident bytes at least those, no error; wavvq
+    codes at P22_SCALE_CPU_J against the CPU port on the same data."""
+    import numpy as np
+    import torch
+    from qpgesture_tpu_torch.examples import scale_study
+    from qpgesture_tpu_torch.match.engine import CodeKNNEngine
+    from qpgesture_tpu_torch.utils import devtime
+    _, peak = devtime.peak_flops_per_s()
+    rows = []
+    for mode, sizes in P22_SCALE.items():
+        for J in sizes:
+            keep = {}
+            t0 = time.time()
+            row = scale_study.run(mode, J, peak, device=dev, keep=keep)
+            row["wall_s"] = round(time.time() - t0, 1)
+            row["card"] = smi
+            want = reckoned_db_bytes(keep["cfg"], keep["db"])
+            check = ""
+            if mode == "wavvq" and J in P22_SCALE_CPU_J:
+                cpu = CodeKNNEngine(keep["cfg"], keep["db"], device="cpu")
+                codes, _, _, _ = cpu.predict_device(
+                    keep["test_audio"], keep["test_ctx"],
+                    init_code=7, init_phase=np.zeros((8, 16), np.float32))
+                same = np.array_equal(codes.numpy(), keep["codes"])
+                check = f"; codes == CPU port: {same}"
+                if not same:
+                    raise SystemExit(f"phase 22 scale {mode} J={J}: card "
+                                     f"codes differ from the CPU port's")
+                del cpu
+            log(f"phase 22 scale_study {json.dumps(row)}")
+            log(f"phase 22 scale {mode} J={J}: db bytes {row['db_hbm_bytes']}"
+                f" (reckoned from the shapes {want}), resident "
+                f"{row['resident_bytes']}{check}")
+            # the CPU reports no allocation: a rehearsal checks the bytes
+            resident_ok = row["resident_bytes"] >= row["db_hbm_bytes"] \
+                or dev == "cpu"
+            if "error" in row or row["db_hbm_bytes"] != want or \
+                    not resident_ok:
+                raise SystemExit(f"phase 22 scale {mode} J={J}: {row}")
+            rows.append(row)
+            del keep
+            torch.cuda.empty_cache()
+    return rows
+
+
+def phase22_streaming(dev: str) -> list:
+    """streaming_soak: P22_STREAM_WINDOWS pushes of one stream and
+    P22_POOL_TICKS ticks of P22_POOL_STREAMS streams, both presets; the
+    soak's own assertions (pushes == whole clip, streams == solo)."""
+    from qpgesture_tpu_torch.examples import streaming_soak
+    rows = []
+    for mode in ("wavvq", "wavlm"):
+        rows.append(streaming_soak.soak(mode, P22_STREAM_WINDOWS,
+                                        device=dev)[0])
+        log(f"phase 22 streaming_soak {json.dumps(rows[-1])}")
+    for mode in ("wavvq", "wavlm"):
+        rows.append(streaming_soak.soak_pool(
+            mode, P22_POOL_TICKS, P22_POOL_STREAMS, device=dev)[0])
+        log(f"phase 22 streaming_soak pool {json.dumps(rows[-1])}")
+    return rows
+
+
+def phase22_serving(dev: str) -> None:
+    """serve_production's four modes on the card (its bucketed clips held
+    to solo predict inside), against the CPU port's codes."""
+    import numpy as np
+    from qpgesture_tpu_torch.examples import serve_production
+    quiet = lambda s: None
+    got = serve_production.main(dev, log=quiet)
+    want = serve_production.main("cpu", log=quiet)
+    same = all(np.array_equal(g, w) for k in ("single", "pool")
+               for g, w in ((got[k], want[k]),)) and \
+        all(np.array_equal(g, w) for k in ("bucketed", "batched")
+            for g, w in zip(got[k], want[k]))
+    log(f"phase 22 serve_production: single {got['single'].shape}, "
+        f"bucketed {[c.shape for c in got['bucketed']]} == solo predict, "
+        f"batched {len(got['batched'])} clips, pool {got['pool'].shape}; "
+        f"== CPU port: {same}; seconds "
+        f"{ {k: round(v, 4) for k, v in got['seconds'].items()} }")
+    if not same:
+        raise SystemExit("phase 22 serve_production: card codes differ from "
+                         "the CPU port's")
+
+
+def _campaign(out: str, *extra) -> subprocess.CompletedProcess:
+    cmd = [sys.executable, "-m",
+           "qpgesture_tpu_torch.examples.train_campaign", "--out", out,
+           "--epochs", str(P22_CAMPAIGN_EPOCHS), "--eval-every",
+           str(P22_CAMPAIGN_EVERY), *extra]
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=P22_CAMPAIGN_TIMEOUT_S)
+    log(f"phase 22 train_campaign {' '.join(extra) or '(run)'}: exit "
+        f"{proc.returncode} in {time.time() - t0:.1f} s")
+    for line in proc.stdout.splitlines():
+        log(f"    {line}")
+    return proc
+
+
+def phase22_campaign(tmp: str) -> dict:
+    """train_campaign in subprocesses at the shipped width and its default
+    corpus: killed after epoch P22_CAMPAIGN_KILL (exit 42), resumed to
+    P22_CAMPAIGN_EPOCHS (exit 0) with every step counted, the checkpoints
+    there and val_err falling; then --post-eval."""
+    out = os.path.join(tmp, "campaign")
+    proc = _campaign(out, "--stop-after", str(P22_CAMPAIGN_KILL))
+    if proc.returncode != 42:
+        raise SystemExit(f"phase 22 campaign kill: exit {proc.returncode}\n"
+                         f"{proc.stderr[-3000:]}")
+    proc = _campaign(out, "--resume")
+    if proc.returncode != 0:
+        raise SystemExit(f"phase 22 campaign resume: exit {proc.returncode}"
+                         f"\n{proc.stderr[-3000:]}")
+    with open(os.path.join(out, "campaign_report.json")) as f:
+        report = json.load(f)
+    spe = report["steps_per_epoch"]
+    epochs = [r["epoch"] for r in report["epochs_run"]]
+    val = [r["val_err"] for r in report["epochs_run"]]
+    files = sorted(os.listdir(out))
+    want_files = ["002.pt", "004.pt", "best.pt", "latest.pt"]
+    log(f"phase 22 campaign: {report['windows_total']} windows, {spe} steps "
+        f"an epoch, total_steps {report['total_steps']}, epochs {epochs}, "
+        f"val_err {val}, windows/s "
+        f"{[r['windows_per_s'] for r in report['epochs_run']]}, files "
+        f"{files}")
+    if report["total_steps"] != P22_CAMPAIGN_EPOCHS * spe or \
+            epochs != list(range(1, P22_CAMPAIGN_EPOCHS + 1)) or \
+            not set(want_files) <= set(files) or not val[-1] < val[0]:
+        raise SystemExit(f"phase 22 campaign: {report}")
+    proc = _campaign(out, "--post-eval")
+    with open(os.path.join(out, "self_eval.json")) as f:
+        rows = json.load(f)
+    if proc.returncode != 0 or [r["checkpoint"] for r in rows] != \
+            ["002", "004", "best"]:
+        raise SystemExit(f"phase 22 campaign post-eval: exit "
+                         f"{proc.returncode}, rows {rows}\n"
+                         f"{proc.stderr[-3000:]}")
+    return report
+
+
+def phase22_demo(dev: str, tmp: str) -> None:
+    """demo_synthetic on the card: its BVH parses with windows x 240
+    frames."""
+    import numpy as np
+    from qpgesture_tpu_torch.examples import demo_synthetic
+    from qpgesture_tpu_torch.motion.bvh import parse_bvh
+    out = demo_synthetic.main(os.path.join(tmp, "demo"), dev,
+                              log=lambda s: None)
+    bvh = parse_bvh(out["bvh"])
+    log(f"phase 22 demo_synthetic: codes {out['codes'].shape}, BVH "
+        f"{bvh.values.shape} parsed back")
+    if bvh.values.shape[0] != out["n_windows"] * 240 or \
+            not np.isfinite(bvh.values).all():
+        raise SystemExit(f"phase 22 demo: BVH {bvh.values.shape}, "
+                         f"{out['n_windows']} windows")
+
+
+def phase22_rawwav(dev: str) -> list:
+    """rawwav_latency: WavLM-Large at "highest" (float32 K2) and at
+    "default" (bfloat16 K2) with its index agreement against "highest"."""
+    from qpgesture_tpu_torch.examples import rawwav_latency
+    rows = []
+    for mode, parity in P22_RAWWAV:
+        rows.append(rawwav_latency.run(mode, dev, parity=parity))
+        log(f"phase 22 rawwav_latency {json.dumps(rows[-1])}")
+    return rows
+
+
+def phase22_examples(dev: str, smi: str) -> tuple:
+    """Phase 22: every example of the port on ``dev`` (the card; a CPU
+    rehearsal passes "cpu", shrinks the P22_* constants, replaces
+    phase22_campaign, whose CPU run tests/test_torch_examples.py makes at
+    a small width, and sees no launches). Returns (K1 launches, K2
+    launches)."""
+    from qpgesture_tpu_torch.ops import flash_attention_cuda as K2
+    from qpgesture_tpu_torch.ops import levenshtein_cuda as K1
+    import torch
+    t0 = time.time()
+    K1.launches = K2.launches = 0
+    walls = {}
+
+    def part(name, fn, *args):
+        t = time.time()
+        out = fn(*args)
+        walls[name] = round(time.time() - t, 1)
+        torch.cuda.empty_cache()
+        return out
+
+    part("parity", phase22_parity, dev)
+    part("ties", phase22_ties, dev)
+    part("scale", phase22_scale, dev, smi)
+    part("streaming", phase22_streaming, dev)
+    part("serving", phase22_serving, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        part("campaign", phase22_campaign, tmp)
+        part("demo", phase22_demo, dev, tmp)
+    part("rawwav", phase22_rawwav, dev)
+    k1, k2 = K1.launches, K2.launches
+    log(f"phase 22 launches: K1 {k1}, K2 {k2}; walls {json.dumps(walls)}; "
+        f"{time.time() - t0:.1f} s in all")
+    if not (k1 and k2):
+        raise SystemExit(f"phase 22 launched K1 {k1}, K2 {k2} times")
+    return k1, k2
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5471,6 +5792,11 @@ def main() -> int:
     bench_line, k1, k2 = phase21_bench(kind)
     k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
     phase_wall("phase 21")
+
+    # -- phase 22: the port's examples ---------------------------------------
+    k1, k2 = phase22_examples("cuda", smi)
+    k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
+    phase_wall("phase 22")
 
     # -- the kernels line and the result ------------------------------------
     kernels_line = {"kernels": [{

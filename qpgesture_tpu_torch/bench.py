@@ -175,27 +175,56 @@ def _match_flops(cfg, db, W, S):
     return flops, cells
 
 
+def randn_f32(rng, *shape, rows: int = 256) -> np.ndarray:
+    """``rng.randn(*shape).astype(np.float32)``, drawn ``rows`` slices of
+    the first axis at a time: the legacy generator's successive calls
+    continue one stream, so the values are the same, without the whole
+    float64 array (twice the float32 result) on the host at once."""
+    out = np.empty(shape, np.float32)
+    for s in range(0, shape[0], rows):
+        n = min(rows, shape[0] - s)
+        out[s:s + n] = rng.randn(n, *shape[1:])
+    return out
+
+
+def _draw_mode(mode, rng, J, W):
+    """(database audio, test audio, test context) host arrays of the mode,
+    drawn from ``rng`` as the JAX bench draws them."""
+    if mode == "wavvq":
+        audio = rng.randint(0, C.WAVVQ_VOCAB,
+                            size=(J, C.WAVVQ_FRAMES, 2)).astype(np.int32)
+        test_audio = rng.randint(0, C.WAVVQ_VOCAB,
+                                 size=(W, C.WAVVQ_FRAMES, 2)).astype(np.int32)
+    else:
+        audio = randn_f32(rng, J, C.WAVLM_FRAMES, 1024)
+        test_audio = randn_f32(rng, W, C.WAVLM_FRAMES, 1024)
+    return audio, test_audio, randn_f32(rng, W, 30, C.CONTEXT_DIM)
+
+
+def _stage_host(mode, bundle, codes, signature, draws,
+                feat_dtype: str = "float32"):
+    """The mode's preset, host-staged database and staged test queries of
+    ``_draw_mode``'s arrays."""
+    audio, test_audio, test_context = draws
+    if mode == "wavvq":
+        cfg = MATCH_PRESETS["wavvq"]
+        db = stage_database(cfg, bundle, codes, signature, wavvq=audio)
+        ta = stage_test_audio(cfg, db, wavvq=test_audio)
+    else:
+        cfg = dataclasses.replace(MATCH_PRESETS["shipped"],
+                                  feat_dtype=feat_dtype)
+        db = stage_database(cfg, bundle, codes, signature, wavlm=audio)
+        ta = stage_test_audio(cfg, db, wavlm=test_audio)
+    return cfg, db, ta, stage_test_context(db, test_context)
+
+
 def _stage_mode(mode, rng, J, W, bundle, codes, signature,
                 feat_dtype: str = "float32", device=None):
     """The mode's preset, staged database, engine on ``device`` and staged
     test queries, drawn from ``rng`` as the JAX bench draws them."""
-    if mode == "wavvq":
-        cfg = MATCH_PRESETS["wavvq"]
-        wavvq = rng.randint(0, C.WAVVQ_VOCAB,
-                            size=(J, C.WAVVQ_FRAMES, 2)).astype(np.int32)
-        test_wavvq = rng.randint(0, C.WAVVQ_VOCAB,
-                                 size=(W, C.WAVVQ_FRAMES, 2)).astype(np.int32)
-        db = stage_database(cfg, bundle, codes, signature, wavvq=wavvq)
-        test_audio = stage_test_audio(cfg, db, wavvq=test_wavvq)
-    else:
-        cfg = dataclasses.replace(MATCH_PRESETS["shipped"],
-                                  feat_dtype=feat_dtype)
-        wavlm = rng.randn(J, C.WAVLM_FRAMES, 1024).astype(np.float32)
-        test_wavlm = rng.randn(W, C.WAVLM_FRAMES, 1024).astype(np.float32)
-        db = stage_database(cfg, bundle, codes, signature, wavlm=wavlm)
-        test_audio = stage_test_audio(cfg, db, wavlm=test_wavlm)
-    test_context = rng.randn(W, 30, C.CONTEXT_DIM).astype(np.float32)
-    test_ctx = stage_test_context(db, test_context)
+    cfg, db, test_audio, test_ctx = _stage_host(
+        mode, bundle, codes, signature, _draw_mode(mode, rng, J, W),
+        feat_dtype)
     engine = CodeKNNEngine(cfg, db, device=device or DEVICE)
     return cfg, db, engine, test_audio, test_ctx
 
@@ -362,14 +391,16 @@ def _bench_mode(mode, rng, J, W, bundle, codes, signature, model, peak):
     return out
 
 
-def _decoder(rng):
-    """The full-size VQ-VAE (seed 0), its codebook initialised from two
-    random windows drawn from ``rng`` (the restarts' own draws from a
-    generator of seed 1, so that ``rng`` advances as the JAX bench's)."""
+def _decoder(rng, device=None):
+    """The full-size VQ-VAE (seed 0) on ``device`` (None: DEVICE), its
+    codebook initialised from two random windows drawn from ``rng`` (the
+    restarts' own draws from a generator of seed 1, so that ``rng``
+    advances as the JAX bench's)."""
+    device = device or DEVICE
     model = seeded_init(lambda: VQVAE(VQVAEConfig(), device="cpu"), 0)
-    model.to(DEVICE)
+    model.to(device)
     x = torch.as_tensor(rng.randn(2, 240, C.POSE_DIM).astype(np.float32),
-                        device=DEVICE)
+                        device=device)
     model.init_codebook_from_batch(x, np.random.RandomState(1))
     return model
 
@@ -386,40 +417,33 @@ def _rawwav_mode(mode: str):
     return base, precision or "highest"
 
 
-def _encoder(base, precision):
-    """The full-size audio encoder (random weights, seed 7): vq-wav2vec
-    for wavvq, WavLM-Large at ``precision`` for wavlm."""
+def _encoder(base, precision, device=None):
+    """The full-size audio encoder (random weights, seed 7) on ``device``
+    (None: DEVICE): vq-wav2vec for wavvq, WavLM-Large at ``precision`` for
+    wavlm."""
+    device = device or DEVICE
     if base == "wavvq":
-        return seeded_init(lambda: VQWav2Vec(device="cpu"), 7).to(DEVICE)
+        return seeded_init(lambda: VQWav2Vec(device="cpu"), 7).to(device)
     cfg = WavLMConfig(precision=precision)
-    return seeded_init(lambda: WavLM(cfg, device="cpu"), 7).to(DEVICE)
+    return seeded_init(lambda: WavLM(cfg, device="cpu"), 7).to(device)
 
 
-def _bench_rawwav(mode, peak):
-    """Raw 16 kHz int16 windows -> poses through serve.RawWavServer (the
-    ingress the reference's quick-start leaves out), on the data
-    examples/rawwav_latency.py stages: its own RandomState(0)."""
+def _rawwav_setup(mode, rng, J, W, device=None):
+    """(cfg, engine, model, server) of a raw-wav mode, drawn from ``rng``
+    as examples/rawwav_latency.py draws them."""
     base, precision = _rawwav_mode(mode)
-    rng = np.random.RandomState(0)
     bundle, codes, signature = _build_common(rng, J)
-    cfg, db, engine, _, _ = _stage_mode(base, rng, J, W, bundle, codes,
-                                        signature)
-    model = _decoder(rng)
-    server = RawWavServer(engine, model, _encoder(base, precision))
-    wav = (rng.randn(W, N_SAMPLES) * 3000).astype(np.int16)
-    ctx = rng.randn(W, 30, C.CONTEXT_DIM).astype(np.float32)
+    cfg, _, engine, _, _ = _stage_mode(base, rng, J, W, bundle, codes,
+                                       signature, device=device)
+    model = _decoder(rng, device)
+    server = RawWavServer(engine, model, _encoder(base, precision, device))
+    return cfg, engine, model, server
 
-    t0 = time.perf_counter()
-    codes_out, poses = server.serve(wav, ctx, init_code=INIT_CODE)
-    first_call_s = time.perf_counter() - t0
-    if codes_out.shape != (W, 30) or poses.shape != (W * 240, C.POSE_DIM) \
-            or not np.isfinite(poses).all():
-        raise RuntimeError(f"rawwav:{mode}: codes {codes_out.shape}, poses "
-                           f"{poses.shape}")
-    p50, _ = _host_seconds(lambda: server.serve(wav, ctx, init_code=INIT_CODE),
-                         7)
 
-    # device: encoder + device staging, match, decode, each alone
+def _rawwav_device(cfg, engine, model, server, wav, ctx, W):
+    """Device seconds of the encoder (with device staging), the match and
+    the decode of one request, each timed alone, and the counted FLOPs of
+    the three."""
     S = server.n_steps
     wav_d = torch.as_tensor(wav, device=engine.device)
     ctx_d = torch.as_tensor(ctx, device=engine.device)
@@ -444,9 +468,34 @@ def _bench_rawwav(mode, peak):
                                                  k_large=3, reps=5)
     dec_s, _ = devtime.device_seconds_per_iter(fn_dec, k_small=1, k_large=3,
                                                reps=5)
-    dev_s = enc_s + match_s + dec_s
     flops = sum(devtime.cost_analysis_flops(fn)[0]
                 for fn in (fn_enc, fn_match, fn_dec)) or None
+    return enc_s, match_s, dec_s, flops
+
+
+def _bench_rawwav(mode, peak):
+    """Raw 16 kHz int16 windows -> poses through serve.RawWavServer (the
+    ingress the reference's quick-start leaves out), on the data
+    examples/rawwav_latency.py stages: its own RandomState(0)."""
+    rng = np.random.RandomState(0)
+    cfg, engine, model, server = _rawwav_setup(mode, rng, J, W)
+    wav = (rng.randn(W, N_SAMPLES) * 3000).astype(np.int16)
+    ctx = rng.randn(W, 30, C.CONTEXT_DIM).astype(np.float32)
+
+    t0 = time.perf_counter()
+    codes_out, poses = server.serve(wav, ctx, init_code=INIT_CODE)
+    first_call_s = time.perf_counter() - t0
+    if codes_out.shape != (W, 30) or poses.shape != (W * 240, C.POSE_DIM) \
+            or not np.isfinite(poses).all():
+        raise RuntimeError(f"rawwav:{mode}: codes {codes_out.shape}, poses "
+                           f"{poses.shape}")
+    p50, _ = _host_seconds(lambda: server.serve(wav, ctx, init_code=INIT_CODE),
+                         7)
+
+    # device: encoder + device staging, match, decode, each alone
+    enc_s, match_s, dec_s, flops = _rawwav_device(cfg, engine, model,
+                                                  server, wav, ctx, W)
+    dev_s = enc_s + match_s + dec_s
     gest_s = W * 4.0
     out = {
         "mode": mode,

@@ -842,3 +842,36 @@ def test_bench_rawpose_and_pae_on_card(cuda):
     assert rawpose["n_seqs"] == 16 and rawpose["p50_ms"] > 0
     assert set(pae) == {"frames", "p50_ms", "frames_per_s"}
     assert pae["frames"] == bench.PAE_FRAMES and pae["p50_ms"] > 0
+
+
+def test_long_clip_on_card_matches_cpu(cuda):
+    """The reference's 3600-frame mfcc clip (one window of 113 steps, 450
+    codes) on the card: equal to the CPU port's codes and to the oracle."""
+    from qpgesture_tpu_torch.examples.chip_parity_sweep import \
+        long_clip_codes
+    got, oracle = long_clip_codes("cuda")
+    cpu, _ = long_clip_codes("cpu")
+    assert got.shape == (2, 450)
+    np.testing.assert_array_equal(got, cpu)
+    np.testing.assert_array_equal(got, oracle)
+
+
+def test_predict_bucketed_on_card_matches_solo_predict(cuda):
+    """predict_bucketed pads a clip to its bucket of windows: on the card
+    its codes equal a solo predict of the same clip, and the CPU port's."""
+    rng = np.random.RandomState(44)
+    fx = make_fixture(rng, n_seq=8, n_test=3)
+    cfg = MATCH_PRESETS["wavvq"]
+    db = stage_database(cfg, fx["bundle"], fx["codes"], fx["signature"],
+                        wavvq=fx["wavvq"])
+    ta = stage_test_audio(cfg, db, wavvq=fx["test_wavvq"])
+    tc = stage_test_context(db, fx["test_context"])
+    engine = CodeKNNEngine(cfg, db, device="cuda")
+    before = levenshtein_cuda.launches
+    got = engine.predict_bucketed(ta, tc)
+    assert levenshtein_cuda.launches > before
+    assert got.codes.shape == (3, 30)
+    np.testing.assert_array_equal(got.codes, engine.predict(ta, tc).codes)
+    np.testing.assert_array_equal(
+        got.codes,
+        CodeKNNEngine(cfg, db, device="cpu").predict_bucketed(ta, tc).codes)

@@ -41,7 +41,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
               "pipelines.trinity", "render.analytics", "render.plots",
               "render.visualize", "utils.devtime", "utils.profiling",
               "parallel", "parallel.dist", "parallel.sharded_match",
-              "bench"):
+              "bench", "examples", "examples.fixtures",
+              "examples.parity_soak", "examples.chip_parity_sweep",
+              "examples.tie_divergence_sweep", "examples.scale_study",
+              "examples.streaming_soak", "examples.serve_production",
+              "examples.train_campaign", "examples.demo_synthetic",
+              "examples.rawwav_latency"):
         assert f"qpgesture_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
