@@ -37,6 +37,7 @@ from ..ops.levenshtein_cuda import levenshtein_matrix
 from ..ops.precision import mm_nt_f32, split_bf16
 from ..ops.ranking import rank, rank_np, tree_sum
 from ..parallel import dist
+from ..utils.profiling import count, span
 from .database import MatchDatabase
 from .geometry import phase_start
 from .oracle import CandidateTable, CodeKNNOracle, OracleResult
@@ -547,6 +548,8 @@ def _fuse_scan_clips(cfg: MatchConfig, n_steps: int, clips: int,
     if Q % C:
         raise ValueError(f"{Q} steps do not split into {C} lanes")
     L = Q // C
+    count("steps", L)        # once, outside the per-step loop
+    count("lanes", C)
     # Cross-window seed geometry: the kept code result[num_frames_code]
     # (appended index num_frames_code-1) must land in the final step's block.
     seed_i = cfg.num_frames_code - 1
@@ -738,18 +741,20 @@ class CodeKNNEngine:
         """Phase 1 for device queries: over the whole database on this
         device, or (sharded) over this rank's shard, combined across the
         group into the same tables on every rank."""
-        if not sharded:
-            return _tables_impl(self.cfg, self.devdb, ta, tc)
-        from ..parallel.sharded_match import build_sharded_tables
-        return build_sharded_tables(self.cfg, self.sharded_db(group), ta, tc,
-                                    group)
+        with span("tables"):
+            if not sharded:
+                return _tables_impl(self.cfg, self.devdb, ta, tc)
+            from ..parallel.sharded_match import build_sharded_tables
+            return build_sharded_tables(self.cfg, self.sharded_db(group), ta,
+                                        tc, group)
 
     def scan(self, tables: DeviceTables, n_steps: int, clips: int,
              rand_bits, resets):
         """Phase 2: the lane-batched fusion scan of C clips (or streams)
         over their tables; resets = (reset_mask, reset_code, reset_phase)."""
-        return _fuse_scan_clips(self.cfg, n_steps, clips, self.dev, tables,
-                                rand_bits, *resets)
+        with span("scan"):
+            return _fuse_scan_clips(self.cfg, n_steps, clips, self.dev,
+                                    tables, rand_bits, *resets)
 
     def _chain_inputs(self, W: int, S: int,
                       rng: np.random.RandomState):
@@ -789,12 +794,13 @@ class CodeKNNEngine:
         without a host sync."""
         cfg, dev = self.cfg, self.device
         ta = tc = None
-        if cfg.use_aud:
-            dtype = torch.int32 if cfg.audio_mode == "wavvq_feat" \
-                else torch.float32
-            ta = to_device(test_audio, dev, dtype)
-        if cfg.use_txt:
-            tc = to_device(test_context, dev, torch.float32)
+        with span("stage"):
+            if cfg.use_aud:
+                dtype = torch.int32 if cfg.audio_mode == "wavvq_feat" \
+                    else torch.float32
+                ta = to_device(test_audio, dev, dtype)
+            if cfg.use_txt:
+                tc = to_device(test_context, dev, torch.float32)
         return ta, tc
 
     def predict_device(self, test_audio: Optional[np.ndarray],

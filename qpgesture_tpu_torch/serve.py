@@ -33,6 +33,7 @@ from .match.oracle import CodeKNNOracle
 from .models.vqvae import VQVAE
 from .pipelines.database_builder import context_slots
 from .render.decode import denormalize
+from .utils.profiling import count, span
 
 
 def _check_same_device(engine: CodeKNNEngine, **modules) -> None:
@@ -40,6 +41,13 @@ def _check_same_device(engine: CodeKNNEngine, **modules) -> None:
         if resolve_device(m.device) != engine.device:
             raise ValueError(f"engine on {engine.device}, {name} on "
                              f"{m.device}: serve from one device")
+
+
+def _root_counts(lanes: int, windows: int) -> None:
+    """The counters of a request's root span: its lanes (clips or streams)
+    and the windows of each."""
+    count("lanes", lanes)
+    count("windows", windows)
 
 
 @torch.no_grad()
@@ -56,9 +64,11 @@ def _match_decode(engine: CodeKNNEngine, model: VQVAE, ta, tc, S: int,
     blocks, _, _ = engine.scan(engine.tables(ta, tc, sharded, group), S, C,
                                rand_bits, resets)
     codes = blocks.reshape(C, -1, S * cfg.step_sz)[..., :cfg.num_frames_code]
-    poses = model.decode(codes.reshape(C, -1))
-    return (codes.to(torch.int32).cpu().numpy(),
-            denormalize(poses.cpu().numpy(), data_mean, data_std))
+    with span("decode"):
+        poses = model.decode(codes.reshape(C, -1))
+    with span("fetch"):
+        return (codes.to(torch.int32).cpu().numpy(),
+                denormalize(poses.cpu().numpy(), data_mean, data_std))
 
 
 def _serve_staged(engine: CodeKNNEngine, model: VQVAE, ta, tc, W: int,
@@ -104,10 +114,12 @@ class ServingPipeline:
         135) denormalized); see _serve_staged for the seeds."""
         lead = test_audio if test_audio is not None else test_context
         W, S = lead.shape[:2]
-        ta, tc = self.engine.stage_queries(test_audio, test_context)
-        return _serve_staged(self.engine, self.model, ta, tc, W, S,
-                             init_code, init_phase, rng, self.data_mean,
-                             self.data_std)
+        with span("serve"):
+            _root_counts(1, W)
+            ta, tc = self.engine.stage_queries(test_audio, test_context)
+            return _serve_staged(self.engine, self.model, ta, tc, W, S,
+                                 init_code, init_phase, rng, self.data_mean,
+                                 self.data_std)
 
 
 @dataclass
@@ -147,9 +159,10 @@ class RawWavServer:
         """(W, n_samples) int16 or float windows (host array or tensor) ->
         the encoder's output on the device. int16 arrives as int16 and
         becomes wav / 32768 there."""
-        x = to_device(wav, self.engine.device)
-        x = x.float() / 32768.0 if not x.is_floating_point() else x.float()
-        return self.encoder(x)
+        with span("encode"):
+            x = to_device(wav, self.engine.device)
+            x = x.float() / 32768.0 if not x.is_floating_point() else x.float()
+            return self.encoder(x)
 
     def stage(self, enc: torch.Tensor,
               test_context: Optional[np.ndarray]):
@@ -157,14 +170,15 @@ class RawWavServer:
         queries (ta, tc)."""
         cfg = self.engine.cfg
         geom = self.engine.db.geom
-        if cfg.audio_mode == "wavvq_feat":
-            ta = stage_wavvq(cfg, geom, enc)
-        else:
-            ta = stage_wavlm(cfg, geom, enc)
-        tc = None
-        if cfg.use_txt:
-            tc = stage_context(geom, to_device(test_context,
-                                               self.engine.device))
+        with span("stage"):
+            if cfg.audio_mode == "wavvq_feat":
+                ta = stage_wavvq(cfg, geom, enc)
+            else:
+                ta = stage_wavlm(cfg, geom, enc)
+            tc = None
+            if cfg.use_txt:
+                tc = stage_context(geom, to_device(test_context,
+                                                   self.engine.device))
         return ta, tc
 
     def serve(self, wav: np.ndarray,
@@ -176,10 +190,13 @@ class RawWavServer:
         """wav (W, n_samples) int16/float windows (+ (W, 30, 384) context
         when the config uses text) -> (codes (W, 30), poses (W*240, 135)
         denormalized); see _serve_staged for the seeds."""
-        ta, tc = self.stage(self.encode(wav), test_context)
-        return _serve_staged(self.engine, self.model, ta, tc, wav.shape[0],
-                             self.n_steps, init_code, init_phase, rng,
-                             self.data_mean, self.data_std)
+        with span("serve"):
+            _root_counts(1, wav.shape[0])
+            ta, tc = self.stage(self.encode(wav), test_context)
+            return _serve_staged(self.engine, self.model, ta, tc,
+                                 wav.shape[0], self.n_steps, init_code,
+                                 init_phase, rng, self.data_mean,
+                                 self.data_std)
 
     def serve_batch(self, wav: np.ndarray,
                     test_context: Optional[np.ndarray] = None,
@@ -197,18 +214,21 @@ class RawWavServer:
         cfg = self.engine.cfg
         C, W = wav.shape[:2]
         S = self.n_steps
-        (_, _, reset_mask, reset_code, reset_phase,
-         rand_bits) = self.engine._batch_inputs(
-            C, W, S, None, None, init_codes, init_phases, rng)
-        ctx = None
-        if cfg.use_txt:
-            ctx = np.asarray(test_context).reshape(
-                (C * W,) + test_context.shape[2:])
-        ta, tc = self.stage(self.encode(wav.reshape((C * W,)
-                                                    + wav.shape[2:])), ctx)
-        return _match_decode(self.engine, self.model, ta, tc, S, C,
-                             rand_bits, (reset_mask, reset_code, reset_phase),
-                             self.data_mean, self.data_std)
+        with span("serve_batch"):
+            _root_counts(C, W)
+            (_, _, reset_mask, reset_code, reset_phase,
+             rand_bits) = self.engine._batch_inputs(
+                C, W, S, None, None, init_codes, init_phases, rng)
+            ctx = None
+            if cfg.use_txt:
+                ctx = np.asarray(test_context).reshape(
+                    (C * W,) + test_context.shape[2:])
+            ta, tc = self.stage(self.encode(wav.reshape((C * W,)
+                                                        + wav.shape[2:])), ctx)
+            return _match_decode(self.engine, self.model, ta, tc, S, C,
+                                 rand_bits,
+                                 (reset_mask, reset_code, reset_phase),
+                                 self.data_mean, self.data_std)
 
     def serve_sharded(self, group, wav: np.ndarray,
                       test_context: Optional[np.ndarray] = None,
@@ -222,11 +242,13 @@ class RawWavServer:
         combine runs the fusion scan and the decode replicated. Same codes
         as serve() with the same rng, on every rank: the multi-GPU raw-wav
         surface for databases past one card's memory."""
-        ta, tc = self.stage(self.encode(wav), test_context)
-        return _serve_staged(self.engine, self.model, ta, tc, wav.shape[0],
-                             self.n_steps, init_code, init_phase, rng,
-                             self.data_mean, self.data_std, sharded=True,
-                             group=group)
+        with span("serve"):
+            _root_counts(1, wav.shape[0])
+            ta, tc = self.stage(self.encode(wav), test_context)
+            return _serve_staged(self.engine, self.model, ta, tc,
+                                 wav.shape[0], self.n_steps, init_code,
+                                 init_phase, rng, self.data_mean,
+                                 self.data_std, sharded=True, group=group)
 
 
 def _embed_unique(embed_fn, texts: List[str]) -> np.ndarray:
@@ -591,4 +613,8 @@ class StreamingRawWavPool(_Streams):
         """One raw wav window per stream: wav (C, n_samples) int16/float
         (+ (C, 30, 384) context when the config uses text) -> (C, 30)
         codes. active: optional (C,) bool, as in StreamingPool.tick."""
-        return self.tick_device(wav, context, active).cpu().numpy()
+        with span("tick"):
+            _root_counts(self.n_streams, 1)
+            codes = self.tick_device(wav, context, active)
+            with span("fetch"):
+                return codes.cpu().numpy()

@@ -4,7 +4,6 @@ precision GEMM route, and on a double-backward graph that FlopCounterMode
 refuses), and that device timing refuses a machine without a card. The
 timing itself runs on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
 import json
-import os
 import time
 
 import pytest
@@ -13,8 +12,7 @@ import torch.nn.functional as F
 
 from qpgesture_tpu_torch.models.encdec import Conv1d
 from qpgesture_tpu_torch.utils import devtime
-from qpgesture_tpu_torch.utils.profiling import (Profiler, block_and_time,
-                                                 device_trace)
+from qpgesture_tpu_torch.utils.profiling import Profiler, block_and_time
 
 
 def test_profiler_nests_and_reports(tmp_path):
@@ -35,12 +33,15 @@ def test_profiler_nests_and_reports(tmp_path):
     assert json.loads(prof.dump(path)) == json.load(open(path))
 
 
-def test_block_and_time_and_trace_on_the_cpu(tmp_path):
-    out, sec = block_and_time(lambda x: x * 2, torch.ones(3), n=3)
+def test_block_and_time_and_trace_on_the_cpu():
+    calls = []
+
+    def double(x):
+        calls.append(1)
+        return x * 2
+    out, sec = block_and_time(double, torch.ones(3), n=3)
     assert torch.equal(out, torch.full((3,), 2.0)) and sec >= 0
-    with device_trace(str(tmp_path / "trace")):
-        torch.ones(8) @ torch.ones(8)
-    assert any(f.endswith(".json") for f in os.listdir(tmp_path / "trace"))
+    assert len(calls) == 4                      # one warm-up, then n
 
 
 def test_mfu_and_peaks():
