@@ -6,7 +6,9 @@
 Builds every CUDA kernel of the port from the sources in the checkout (one
 ``nvcc`` per source, all at once), holds each against its plain PyTorch
 version on the card, and drives the port's paths, each with the kernel
-counts set to 0 just before it and read just after:
+counts set to 0 just before it and read just after. Every phase from 4 on
+but 6 scans on the card, so each must launch K3, the fusion scan kernel
+(phase 4: once a request):
 
   phases 3-5   K1 checks and times; host-staged wavvq serving (J=1024
                database, 3 requests of 6 windows = 24 s clips) and the
@@ -62,8 +64,11 @@ counts set to 0 just before it and read just after:
                at 0 (the module attribute QPG_PHASE_GRIDS_MAX_MB=0 sets):
                a staged wavvq request (K1), a shipped raw-wav request (K2)
                and a predict_batch of 8 clips against the grid path and
-               the CPU port; resident bytes with and without grids; each
-               path's scan time;
+               the CPU port; resident bytes with and without grids; the
+               fusion scan kernel (K3) against its plain loop (bit for
+               bit, device ms beside its dependent-load bound and the
+               loop's ms) on a request of each preset and engine and on 16
+               lanes;
   phase 17     training: train-vqvae at the shipped width (batch 256, 3
                epochs with validation, --resume for a 4th), decode and
                signature from its output directory, train-pae and
@@ -136,7 +141,7 @@ counts set to 0 just before it and read just after:
 
 It prints one line per check. The last four lines are the bench's compact
 JSON line, the card's name and power limit, one JSON object with every
-kernel's launches, error and times, and ``{"ok": true, "device":
+kernel's launches, error and times (K3's from phase 16b's first case), and ``{"ok": true, "device":
 {...}}``. Any failure exits nonzero
 before that last line; so does a machine without a CUDA device, and a
 directory that holds this script without the package.
@@ -2284,6 +2289,11 @@ def phase16_release(tmp, bundle, codes, signature, wavvq, clips, vqvae_cpu):
 # phase 4's (wavvq) and phase 7's (shipped) J=1024 databases; the lanes of
 # the batch also checked on the CPU port
 P16B_CPU_LANES, P16B_SCAN_ROUNDS = 2, 7
+# the scan's timing: lanes of the batch case, kernel calls a device_ms
+# repetition, and load_chain's dependent loads over a random cycle through
+# P16B_CHAIN_MB MiB (inside the 50 MB L2, and far past it)
+P16B_SCAN_LANES, P16B_KERNEL_CALLS = 16, 20
+P16B_CHAIN_LOADS, P16B_CHAIN_MB = 200_000, (8, 1024)
 
 
 def grid_cap(mb):
@@ -2317,8 +2327,8 @@ def phase16b_capped(dev, serving, requests, shipped, vqvae_gpu, data_mean,
     staged wavvq request (K1), a shipped raw-wav request through
     WavLM-Large (K2) and a predict_batch of C_STAGED wavvq clips, each
     against the grid path on the card and against the CPU port's capped
-    engine; the engines' resident bytes with and without grids; each
-    path's scan time. Returns (K1, K2) launches."""
+    engine; the engines' resident bytes with and without grids; then
+    phase16b_scan_times. Returns (K1, K2) launches and K3's times."""
     import numpy as np
     import torch
     from qpgesture_tpu_torch.core import constants as const
@@ -2451,28 +2461,146 @@ def phase16b_capped(dev, serving, requests, shipped, vqvae_gpu, data_mean,
         f"codes == the CPU port's capped predict_batch; launches K1 {k1}, "
         f"K2 {k2}")
 
-    # -- each path's scan time (not counted as launches), the paths in turn
-    for preset, ta, tc in (("wavvq", ta_w, tc_w), ("shipped", ta_s, tc_s)):
-        scans = {}
-        for name, e in engines[preset].items():
-            qa, qc = e.stage_queries(ta, tc)
-            tables = e.tables(qa, qc)
-            S = qa.shape[1] if qa is not None else qc.shape[1]
-            scans[name] = (e, tables, S, eng._solo_resets(W * S, 0, None))
-        times = {name: [] for name in scans}
-        for rep in range(P16B_SCAN_ROUNDS + 1):
-            for name, (e, tables, S, resets) in scans.items():
-                ms = median_ms(lambda: e.scan(tables, S, 1, None, resets),
-                               1, warmup=0)
-                if rep:                 # round 0 warms up
-                    times[name].append(ms)
-        log(f"phase 16b {preset} scan_ms (one request, Q={W * 8}; CUDA "
-            f"events around the host-launched loop; median of "
-            f"{P16B_SCAN_ROUNDS} rounds of the paths in turn, [min, max]): "
-            + ", ".join(f"{k} {statistics.median(v):.4f} [{min(v):.4f}, "
-                        f"{max(v):.4f}]" for k, v in times.items())
-            + f"; {smi}")
-    return k1, k2
+    # -- the fusion scan kernel against its plain loop, timed --------------
+    ta_16 = np.stack([stage_test_audio(cfg_w, db_w, wavvq=rng.randint(
+        0, const.WAVVQ_VOCAB, size=(W, const.WAVVQ_FRAMES, 2)
+    ).astype(np.int32)) for _ in range(P16B_SCAN_LANES)])
+    tc_16 = np.stack([stage_test_context(db_w, rng.randn(
+        W, 30, 1, 384).astype(np.float32)) for _ in range(P16B_SCAN_LANES)])
+    k3_times = phase16b_scan_times(
+        dev, engines, {"wavvq": (ta_w, tc_w), "shipped": (ta_s, tc_s)},
+        (ta_16.reshape((-1,) + ta_16.shape[2:]),
+         tc_16.reshape((-1,) + tc_16.shape[2:])), smi)
+    return k1, k2, k3_times
+
+
+# The yardstick of the fusion scan's bound: one thread follows next[] n
+# times from entry 0, n dependent loads.
+LOAD_CHAIN_CU = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+__global__ void load_chain(const int64_t* next, int64_t n, int64_t* out) {
+  int64_t i = 0;
+  for (int64_t k = 0; k < n; ++k) i = next[i];
+  *out = i;
+}
+extern "C" int qpg_load_chain(const int64_t* next, int64_t n, int64_t* out,
+                              void* stream) {
+  load_chain<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(next, n, out);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def load_latency_ns(dev, sizes_mb) -> dict:
+    """{mb: device ns of one dependent load} for each size: LOAD_CHAIN_CU
+    (built with the port's nvcc flags) over a random cycle through mb MiB
+    of int64 entries."""
+    import ctypes
+    import torch
+    from qpgesture_tpu_torch.ops import cuda_build
+    with tempfile.TemporaryDirectory() as tmp:
+        src, lib = os.path.join(tmp, "chain.cu"), os.path.join(tmp, "chain.so")
+        with open(src, "w") as f:
+            f.write(LOAD_CHAIN_CU)
+        subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", lib,
+                        src], check=True, capture_output=True, timeout=300)
+        chain = ctypes.CDLL(lib).qpg_load_chain
+    chain.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                      ctypes.c_void_p]
+    chain.restype = ctypes.c_int
+    out = torch.empty((1,), dtype=torch.int64, device=dev)
+
+    def run(nxt):
+        err = chain(nxt.data_ptr(), P16B_CHAIN_LOADS, out.data_ptr(),
+                    torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise SystemExit(f"load chain launch failed (cudaError {err})")
+
+    lat = {}
+    for mb in sizes_mb:
+        order = torch.randperm((mb << 20) // 8, device=dev)
+        nxt = torch.empty_like(order)
+        nxt[order] = order.roll(-1)
+        lat[mb] = device_ms(lambda: run(nxt), 1, reps=3) * 1e6 / \
+            P16B_CHAIN_LOADS
+    return lat
+
+
+def phase16b_scan_times(dev, engines, requests, batch, smi: str) -> dict:
+    """The fusion scan kernel against its plain loop on the card, on one
+    request's tables (Q = W x 8, one lane; each preset, grid and grid-less)
+    and on P16B_SCAN_LANES wavvq clips' (lanes of L = W x 8): the two equal
+    bit for bit; the kernel's device ms (P16B_KERNEL_CALLS calls behind a
+    spin) and one call's ms (CUDA events around it, its host launch
+    included) beside its bound, L dependent loads at LOAD_CHAIN_CU's
+    latency in L2 and past it; the loop's ms a call and its device busy ms (the
+    profiler's union of its operations). requests:
+    {preset: (ta, tc)} of one clip; batch: (ta, tc) of the lanes' windows.
+    Selection is tabulated once, outside the timed calls. Returns the
+    kernels line's K3 times, of the first case (a wavvq request, grid)."""
+    import numpy as np
+    import torch
+    from qpgesture_tpu_torch.match import engine as eng
+    from qpgesture_tpu_torch.ops import fusion_scan_cuda as K3
+    from qpgesture_tpu_torch.utils.profiling import device_busy
+
+    lat = load_latency_ns(dev, P16B_CHAIN_MB)
+    log("phase 16b dependent-load latency (LOAD_CHAIN_CU, "
+        f"{P16B_CHAIN_LOADS} loads through a random cycle): "
+        + ", ".join(f"{mb} MiB {ns:.1f} ns" for mb, ns in lat.items())
+        + f"; {smi}")
+    cases = [(preset, name, e, *requests[preset], 1)
+             for preset in requests for name, e in engines[preset].items()]
+    cases += [("wavvq", name, e, *batch, P16B_SCAN_LANES)
+              for name, e in engines["wavvq"].items()]
+    times, max_err = None, 0.0
+    for preset, name, e, ta, tc, C in cases:
+        cfg = e.cfg
+        qa, qc = e.stage_queries(ta, tc)
+        tables = e.tables(qa, qc)
+        S = tables.n_steps
+        Q = (qa if qa is not None else qc).shape[0] * S
+        L = Q // C
+        mask = np.zeros((L,), bool)
+        mask[0] = True
+        args = (cfg, S, C, (cfg.num_frames_code - 1) % cfg.step_sz, e.dev,
+                tables, eng._tabulate_selection(cfg, e.dev, tables,
+                                                eng._int_scale(cfg)),
+                mask, None,
+                torch.arange(Q, device=e.device) % cfg.codebook_size,
+                torch.zeros((Q, 8, 16), device=e.device))
+        before = K3.launches
+        got, want = eng._scan_kernel(*args), eng._scan_loop(*args)
+        if K3.launches != before + 1 or \
+                not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise SystemExit(f"phase 16b {preset} {name} C={C}: the fusion "
+                             f"scan kernel differs from its plain loop")
+        max_err = max([max_err] + [float((g.double() - w.double()).abs()
+                                         .max()) for g, w in zip(got, want)])
+        k_dev = device_ms(lambda: eng._scan_kernel(*args), P16B_KERNEL_CALLS)
+        k_call = median_ms(lambda: eng._scan_kernel(*args), P16B_SCAN_ROUNDS)
+        loop_call = median_ms(lambda: eng._scan_loop(*args), P16B_SCAN_ROUNDS)
+        # the loop's thousands of launches fill CUDA's launch queue behind
+        # device_ms's spin: its device time is the profiler's busy time
+        loop_dev = device_busy(lambda: eng._scan_loop(*args))[0] * 1e3
+        bound = {mb: L * ns * 1e-6 for mb, ns in lat.items()}
+        log(f"phase 16b fusion scan {preset} {name} C={C} L={L}: kernel == "
+            f"loop (blocks, phases, votes); kernel device {k_dev:.4f} ms, "
+            f"a call {k_call:.4f} ms; bound (L dependent loads) "
+            + ", ".join(f"{bound[mb]:.4f} ms at {mb} MiB's latency"
+                        for mb in P16B_CHAIN_MB)
+            + f"; loop a call {loop_call:.3f} ms, device {loop_dev:.3f} ms "
+            f"(x{loop_call / k_call:.0f} the kernel's call); {smi}")
+        if times is None:
+            mb = P16B_CHAIN_MB[0]
+            times = {"ms": k_dev, "plain_ms": loop_call,
+                     "bound_ms": bound[mb],
+                     "bound_by": f"{L} dependent loads at {lat[mb]:.1f} ns "
+                                 f"({mb} MiB chain, in L2); {preset} {name} "
+                                 f"C={C}",
+                     "library_ms": None}
+    return {"max_abs_err": max_err, **times}
 
 
 def phase16_resync_end2end(dev, rng, tmp, vqvae_cpu):
@@ -4605,8 +4733,8 @@ def phase20_rank(tmp: str, device: str, train: bool, capped: bool):
     engine's construction and its shard); with ``train``, one data-parallel
     step of each trainer; with ``capped``, predict_sharded from engines
     built with the phase-grid cap at 0 (the module attribute that
-    QPG_PHASE_GRIDS_MAX_MB=0 sets at import). Returns the results, K1's and
-    K2's launches in this process and the times."""
+    QPG_PHASE_GRIDS_MAX_MB=0 sets at import). Returns the results, K1's,
+    K2's and K3's launches in this process and the times."""
     import pickle
     import numpy as np
     import torch
@@ -4615,6 +4743,7 @@ def phase20_rank(tmp: str, device: str, train: bool, capped: bool):
     from qpgesture_tpu_torch.models.vqvae import VQVAE
     from qpgesture_tpu_torch.models.wavlm import WavLM, WavLMConfig
     from qpgesture_tpu_torch.ops import flash_attention_cuda as K2
+    from qpgesture_tpu_torch.ops import fusion_scan_cuda as K3
     from qpgesture_tpu_torch.ops import levenshtein_cuda as K1
     from qpgesture_tpu_torch.parallel import dist as pd
     from qpgesture_tpu_torch.parallel.sharded_match import (combine_minargs,
@@ -4633,7 +4762,7 @@ def phase20_rank(tmp: str, device: str, train: bool, capped: bool):
     engine = lambda cfg, name: CodeKNNEngine(  # noqa: E731
         cfg, load_db(os.path.join(tmp, name)), device=dev)
     eng_w = engine(cfg_w, "db_wavvq")
-    K1.launches = K2.launches = 0
+    K1.launches = K2.launches = K3.launches = 0
     out = {"rank": r}
     held = []
 
@@ -4704,7 +4833,7 @@ def phase20_rank(tmp: str, device: str, train: bool, capped: bool):
             f"; capped (QPG_PHASE_GRIDS_MAX_MB=0 as a module attribute): "
             f"{out['capped engine'] / 1e6:.3f} MB, grids "
             f"{out['capped grids'] / 1e6:.3f} MB" if capped else ""))
-    out["k1"], out["k2"] = K1.launches, K2.launches
+    out["k1"], out["k2"], out["k3"] = K1.launches, K2.launches, K3.launches
     if r == 0:
         host = ": CUDA tensors through host copies" \
             if backend == "gloo" else ""
@@ -4851,8 +4980,8 @@ def phase20(dev, rng, tmp: str, vq_cpu, data_mean, data_std) -> tuple:
     """Phase 20: database-sharded serving and data-parallel training in
     process groups on the one card (world 1 under NCCL; 2 and 4 gloo ranks
     sharing cuda:0), each rank held against the single device; match
-    --sharded and train-vqvae under torch.distributed.run. Returns K1's
-    and K2's launches (in the groups' ranks)."""
+    --sharded and train-vqvae under torch.distributed.run. Returns K1's,
+    K2's and K3's launches (in the groups' ranks)."""
     import pickle
     import numpy as np
     import torch
@@ -4909,7 +5038,7 @@ def phase20(dev, rng, tmp: str, vq_cpu, data_mean, data_std) -> tuple:
     # the card every rank of every group runs on
     rank_dev = str(torch.device("cuda", torch.cuda.current_device())) \
         if dev.type == "cuda" else str(dev)
-    k1 = k2 = 0
+    k1 = k2 = k3 = 0
     for world, backend in P20_GROUPS:
         t1 = time.time()
         ranks = spawn(phase20_rank, world,
@@ -4919,6 +5048,7 @@ def phase20(dev, rng, tmp: str, vq_cpu, data_mean, data_std) -> tuple:
         a, b = phase20_check(world, backend, ranks, ref,
                              train_ref if world == 2 else None)
         k1, k2 = k1 + a, k2 + b
+        k3 += sum(o["k3"] for o in ranks)
         log(f"phase 20 [{world} {backend}] group: {time.time() - t1:.1f} s "
             f"wall (processes, staging, checks)")
 
@@ -4965,7 +5095,7 @@ def phase20(dev, rng, tmp: str, vq_cpu, data_mean, data_std) -> tuple:
         f"{P20_CLI_WINDOWS} windows (batch {TRAIN_BATCH}) -> rank 0's "
         f"best.pt decoded to BVH {bvh.values.shape}; {time.time() - t0:.1f}"
         f" s wall (the three launches at once)")
-    return k1, k2
+    return k1, k2, k3
 
 
 # Phase 21's budget (QPG_BENCH_BUDGET_S): room for every section, so that a
@@ -5434,13 +5564,28 @@ def main() -> int:
     from qpgesture_tpu_torch.models.vqvae import VQVAE
     from qpgesture_tpu_torch.ops import cuda_build
     from qpgesture_tpu_torch.ops import flash_attention_cuda as K2
+    from qpgesture_tpu_torch.ops import fusion_scan_cuda as K3
     from qpgesture_tpu_torch.ops import levenshtein_cuda as K1
     from qpgesture_tpu_torch.serve import ServingPipeline
+    k3_launches = 0
+
+    def k3_read(phase: str, elsewhere: int = 0) -> None:
+        """Adds K3's launches since its counter was set to 0 (and those
+        counted in other processes) to the total, sets it to 0 for the next
+        phase, and exits when the phase, which scans on the card, ran no
+        K3."""
+        nonlocal k3_launches
+        n, K3.launches = K3.launches + elsewhere, 0
+        log(f"{phase} K3 launches {n}")
+        if n == 0:
+            raise SystemExit(f"{phase} scanned without the fusion scan "
+                             f"kernel (K3)")
+        k3_launches += n
 
     # -- phase 2: build, one nvcc per source, all at once -------------------
     t0 = time.time()
-    cuda_build.build_all([K1.SOURCE, K2.SOURCE])
-    log(f"phase 2 build: {K1.SOURCE} + {K2.SOURCE} "
+    cuda_build.build_all([K1.SOURCE, K2.SOURCE, K3.SOURCE])
+    log(f"phase 2 build: {K1.SOURCE} + {K2.SOURCE} + {K3.SOURCE} "
         f"{time.time() - t0:.2f} s")
     phase_wall("phases 1-2")
 
@@ -5533,15 +5678,18 @@ def main() -> int:
     serving.serve(*requests[-1])            # warm-up request
     torch.cuda.synchronize()
 
-    K1.launches = K2.launches = 0
+    K1.launches = K2.launches = K3.launches = 0
     served, req_ms = [], []
     for r in range(N_REQUESTS):
-        before = K1.launches
+        before, before3 = K1.launches, K3.launches
         t0 = time.perf_counter()
         out = serving.serve(*requests[r])   # returns host arrays: synced
         req_ms.append(1e3 * (time.perf_counter() - t0))
         if K1.launches <= before:
             raise SystemExit(f"request {r} did not launch K1")
+        if K3.launches != before3 + 1:
+            raise SystemExit(f"request {r} launched K3 "
+                             f"{K3.launches - before3} times, not once")
         served.append(out)
     k1_launches = K1.launches
 
@@ -5586,6 +5734,7 @@ def main() -> int:
     log(f"phase 4 stage times: tables_ms={tables_ms:.4f} "
         f"scan_ms={scan_ms:.4f} decode_ms={decode_ms:.4f}")
     log_profile("phase 4", lambda: serving.serve(*requests[0]))
+    k3_read("phase 4")
     phase_wall("phase 4")
 
     # -- phase 5: match -> decode CLI --------------------------------------
@@ -5635,50 +5784,60 @@ def main() -> int:
             f"{bvh.values.shape} parsed back; J={J_CLI} database; files "
             f"{t1 - t0:.1f} s, commands {time.time() - t1:.2f} s")
 
+    k3_read("phase 5")
     phase_wall("phase 5")
 
     # -- phase 6: K2 against its plain version on the card ------------------
     k2_line = phase_k2(dev)
     phase_wall("phase 6")
+    K3.launches = 0                 # phase 6 does not scan
 
     # -- phase 7: raw-wav serving, shipped preset, WavLM-Large --------------
     k2_launches, shipped = phase_rawwav_shipped(
         dev, rng, bundle, codes, signature, model_gpu, model_cpu,
         data_mean, data_std)
+    k3_read("phase 7")
     phase_wall("phase 7")
 
     # -- phase 8: the same at precision="default" (bfloat16 K2) -----------
     k2_launches += phase_rawwav_default(dev, shipped, model_gpu, data_mean,
                                         data_std)
+    k3_read("phase 8")
     phase_wall("phase 8")
 
     # -- phase 9: raw-wav serving, wavvq preset -----------------------------
     k1_launches += phase_rawwav_wavvq(dev, rng, serving, db, cfg)
+    k3_read("phase 9")
     phase_wall("phase 9")
 
     # -- phase 10: generate CLI ----------------------------------------------
     phase_generate(rng, bundle, codes, signature, shipped["feats_db"],
                    shipped["enc_cpu"], model_cpu)
+    k3_read("phase 10")
     phase_wall("phase 10")
 
     # -- phase 11: batched serving ------------------------------------------
     k1, k2, staged = phase_batch(dev, rng, serving, db, cfg, shipped,
                                  model_gpu, data_mean, data_std)
     k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
+    k3_read("phase 11")
     phase_wall("phase 11")
 
     # -- phase 12: streaming pools and sessions -----------------------------
     k1, k2 = phase_streaming(dev, serving, staged)
     k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
+    k3_read("phase 12")
     phase_wall("phase 12")
 
     # -- phase 13: the shipped preset at precision="high" --------------------
     k2_launches += phase_high(dev, shipped, model_gpu, data_mean, data_std)
+    k3_read("phase 13")
     phase_wall("phase 13")
 
     # -- phase 14: transcript -> MiniLM -> context ingress ------------------
     k2_launches += phase_transcript(dev, rng, shipped, staged["server"])
     del staged
+    k3_read("phase 14")
     phase_wall("phase 14")
 
     # -- phase 15: database build on the card -> serve, and the CLIs -------
@@ -5695,6 +5854,7 @@ def main() -> int:
     if not (k1 and k2):
         raise SystemExit("phase 15 did not launch both kernels")
     k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
+    k3_read("phase 15")
     phase_wall("phase 15")
 
     # -- phase 16: matching surface and generate extras --------------------
@@ -5711,16 +5871,18 @@ def main() -> int:
     if not (k1 and k2):
         raise SystemExit("phase 16 did not launch both kernels")
     k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
+    k3_read("phase 16")
     phase_wall("phase 16")
 
     # -- phase 16b: the scan's grid-less path (the grid cap at 0) ----------
-    k1, k2 = phase16b_capped(dev, serving, requests, shipped, model_gpu,
-                             data_mean, data_std, smi)
+    k1, k2, k3_times = phase16b_capped(dev, serving, requests, shipped,
+                                       model_gpu, data_mean, data_std, smi)
     if not (k1 and k2):
         raise SystemExit("phase 16b did not launch both kernels")
     k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
     del shipped
     torch.cuda.empty_cache()
+    k3_read("phase 16b")
     phase_wall("phase 16b")
 
     # -- phase 17: training on the card -> the trained models served -------
@@ -5739,6 +5901,7 @@ def main() -> int:
         k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
         del pae_card
         torch.cuda.empty_cache()
+        k3_read("phase 17")
         phase_wall("phase 17")
 
         # -- phase 18: resync training, evaluation, raw-pose search --------
@@ -5758,6 +5921,7 @@ def main() -> int:
             raise SystemExit("phase 18 did not launch K1")
         k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
         torch.cuda.empty_cache()
+        k3_read("phase 18")
         phase_wall("phase 18")
 
         # -- phase 19: the rest of the single-GPU surface ------------------
@@ -5777,25 +5941,30 @@ def main() -> int:
             raise SystemExit("phase 19 did not launch K1")
         k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
     del built
+    k3_read("phase 19")
     phase_wall("phase 19")
 
     # -- phase 20: process groups: sharded serving, data-parallel training -
     with tempfile.TemporaryDirectory() as tmp:
-        k1, k2 = phase20(dev, rng, tmp, model_cpu, data_mean, data_std)
-    log(f"phase 20 launches (in the groups' ranks): K1 {k1}, K2 {k2}")
-    if not (k1 and k2):
-        raise SystemExit("phase 20 did not launch K1 and K2")
+        k1, k2, k3 = phase20(dev, rng, tmp, model_cpu, data_mean, data_std)
+    log(f"phase 20 launches (in the groups' ranks): K1 {k1}, K2 {k2}, K3 "
+        f"{k3}")
+    if not (k1 and k2 and k3):
+        raise SystemExit("phase 20 did not launch K1, K2 and K3")
     k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
+    k3_read("phase 20", elsewhere=k3)
     phase_wall("phase 20")
 
     # -- phase 21: the port's bench ------------------------------------------
     bench_line, k1, k2 = phase21_bench(kind)
     k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
+    k3_read("phase 21")
     phase_wall("phase 21")
 
     # -- phase 22: the port's examples ---------------------------------------
     k1, k2 = phase22_examples("cuda", smi)
     k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
+    k3_read("phase 22")
     phase_wall("phase 22")
 
     # -- the kernels line and the result ------------------------------------
@@ -5818,6 +5987,13 @@ def main() -> int:
         "replaces": "qpgesture_tpu/ops/flash_attention.py:106",
         "launches": k2_launches,
         **k2_line,
+    }, {
+        "name": "fusion_scan",
+        "route": "cuda",
+        "source": "qpgesture_tpu_torch/csrc/fusion_scan.cu",
+        "replaces": "none: the lax.scan of qpgesture_tpu/match/engine.py:750",
+        "launches": k3_launches,
+        **k3_times,
     }]}
     log(f"total {time.time() - t_start:.1f} s")
     print(bench_line)

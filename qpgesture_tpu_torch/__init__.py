@@ -12,8 +12,10 @@ one GPU or over a torch.distributed process group):
   core/       typed configs + exact npz artifact schemas (copies)
   ops/        ranking, stacking, MFCC; Levenshtein (K1) and WavLM's gated
               flash attention (K2), each as plain torch + a CUDA kernel
-              (csrc/, built by ops/cuda_build.py); the bfloat16 / bf16x3
-              contractions (ops/precision.py)
+              (csrc/, built by ops/cuda_build.py); the matching engine's
+              fusion scan as a CUDA kernel (its plain version is the
+              engine's host loop); the bfloat16 / bf16x3 contractions
+              (ops/precision.py)
   match/      database staging (host numpy), device staging of the
               encoders' output, the CodeKNN engine, the NumPy oracle
   models/     VQ-VAE, WavLM, vq-wav2vec, MiniLM, the PAE, ResyncNet and the

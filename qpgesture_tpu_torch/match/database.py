@@ -128,8 +128,8 @@ def stage_database(cfg: MatchConfig,
 
     if cfg.audio_mode == "wavvq_feat":
         assert wavvq is not None
-        stacked = stack_wavvq(wavvq.astype(np.int32))        # (J, 398, 22)
-        sel = stacked[:, geom.block_frame_idx]               # (J, B, 22)
+        sel = stack_wavvq(wavvq.astype(np.int32, copy=False),
+                          frames=geom.block_frame_idx)       # (J, B, 22)
         if cfg.wavvq_mode == "sum":
             from ..ops.levenshtein import split_wavvq_groups
             g0, g1 = split_wavvq_groups(sel)                 # (J, B, 11) x2
@@ -139,7 +139,8 @@ def stage_database(cfg: MatchConfig,
     elif cfg.audio_mode in ("wavlm_feat", "wavlm"):
         assert wavlm is not None
         interp = interpolate_linear(
-            wavlm.astype(np.float32), geom.n_db_frm)         # (J, 180, 1024)
+            wavlm.astype(np.float32, copy=False),
+            geom.n_db_frm)                                   # (J, 180, 1024)
         if cfg.audio_mode == "wavlm_feat":
             # the 6x stacked feature at block frame t is just frames
             # [t, t+2, ..., t+10] (all in range for block frames), so gather
@@ -183,8 +184,9 @@ def stage_database(cfg: MatchConfig,
     txt_codes = txt_blocks = txt_frames = txt_feat = None
     if cfg.use_txt:
         slots, frames = text_geometry(cfg.step_sz)
-        ctx = bundle.context_2d.astype(np.float32)           # (J, 30, 384)
-        txt_feat = ctx[:, slots]                             # (J, 26, 384)
+        # np.take is C-contiguous, so the device staging's reshape is a view
+        txt_feat = np.take(bundle.context_2d, slots, axis=1).astype(
+            np.float32, copy=False)                          # (J, 26, 384)
         txt_codes = code_train[:, slots]
         tb = slots[:, None] + np.arange(cfg.step_sz)[None, :]
         txt_blocks = code_train[:, tb]
@@ -231,8 +233,7 @@ def stage_test_audio(cfg: MatchConfig, db: MatchDatabase,
     sidx = geom.step_clip_idx
     if cfg.audio_mode == "wavvq_feat":
         assert wavvq is not None
-        stacked = stack_wavvq(wavvq.astype(np.int32))
-        sel = stacked[:, sidx]
+        sel = stack_wavvq(wavvq.astype(np.int32, copy=False), frames=sidx)
         if cfg.wavvq_mode == "sum":
             from ..ops.levenshtein import split_wavvq_groups
             g0, g1 = split_wavvq_groups(sel)

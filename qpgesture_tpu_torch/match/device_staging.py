@@ -26,6 +26,7 @@ import torch
 from ..core import constants as C
 from ..core.config import MatchConfig
 from ..device import to_device
+from ..ops.stacking import wavvq_shifts
 from .geometry import ModeGeometry
 
 
@@ -83,16 +84,6 @@ def stage_wavlm(cfg: MatchConfig, geom: ModeGeometry,
         idx = sidx[:, None] + np.arange(int(geom.step_sz))[None, :]
     sel = _gather_steps(interp, idx, idx < geom.n_db_frm)     # stack_post pad
     return sel.reshape(sel.shape[0], len(sidx), -1)
-
-
-def wavvq_shifts(T: int, n_stack: int = 6,
-                 num_frames_code: int = C.NUM_FRAMES_CODE) -> np.ndarray:
-    """The 11 two-sided stacking shifts of ops/stacking.stack_wavvq: frame t
-    slot s reads codes[t + shifts[s]] (zero where out of range)."""
-    fi = T / num_frames_code
-    past = [-int((n_stack - 1 - i) * fi) for i in range(n_stack)]
-    future = [int(j * fi) for j in range(1, n_stack)]
-    return np.array(past + future, dtype=np.int64)
 
 
 def stage_wavvq(cfg: MatchConfig, geom: ModeGeometry,

@@ -12,11 +12,12 @@ matches a whole clip in two phases:
     tables).
   phase 2 (sequential): the fusion scan over steps carrying (prev_code,
     prev_phase). Candidate selection for every (step, prev_code) is
-    tabulated before the loop; each step then gathers its selection, runs
-    the phase re-rank and chains the seed. The loop runs on the host and
-    its carry stays on the device: no step reads a device value back. C
-    clips (or streams) run as C lanes of the same loop, each step
-    advancing every lane with batched gathers; one clip is one lane.
+    tabulated first; each step then reads its selection, runs the phase
+    re-rank and chains the seed. On the card every step of every lane runs
+    in one launch of the fusion scan kernel (ops/fusion_scan_cuda.py); on
+    the CPU a host loop does, one iteration a step. No step reads a device
+    value back. C clips (or streams) run as C lanes of one scan; one clip
+    is one lane.
 
 Semantics are bit-matched to the JAX engine (qpgesture_tpu/match/engine.py):
 stable ranks, lowest-index tie order in every selection, integer-scaled
@@ -33,6 +34,7 @@ import torch
 
 from ..core.config import MatchConfig
 from ..device import DeviceLike, resolve_device, to_device
+from ..ops import fusion_scan_cuda
 from ..ops.levenshtein_cuda import levenshtein_matrix
 from ..ops.precision import mm_nt_f32, split_bf16
 from ..ops.ranking import rank, rank_np, tree_sum
@@ -517,38 +519,49 @@ def _phase_continuity(prev: torch.Tensor, heads: torch.Tensor
     return 1.0 - tree_sum((a / n[:, :K, None]) * (b / n[:, K:, None]))
 
 
+def check_codes(codes, n_codes: int, what: str) -> None:
+    """Raise unless every code of the host array lies in [0, n_codes). The
+    scan reads its carried code's selection row unchecked on the card, so
+    the codes a caller gives are checked here, before they go up; the codes
+    it carries on are the database's."""
+    codes = np.asarray(codes)
+    if codes.size and (codes.min() < 0 or codes.max() >= n_codes):
+        raise ValueError(f"{what} must lie in [0, {n_codes}), got "
+                         f"{codes.min()} .. {codes.max()}")
+
+
 def _fuse_scan_clips(cfg: MatchConfig, n_steps: int, clips: int,
                      dev: DeviceDatabase, tables: DeviceTables,
                      rand_bits: Optional[np.ndarray],
                      reset_mask: np.ndarray, reset_code, reset_phase):
-    """Phase 2 for C independent clips run as lanes of one loop:
+    """Phase 2 for C independent clips run as lanes of one scan:
     sequential rank fusion + phase re-rank + seed chain.
 
     The Q = C*L steps of the flat tables are C lanes of L steps each (the
-    JAX package vmaps one scan body over them). The loop runs on the host,
-    one iteration per step of a lane, and every iteration advances all C
-    lanes with batched gathers: the launches of one clip, C clips' work.
-    Each lane computes exactly what a solo run of its clip computes.
+    JAX package vmaps one scan body over them). Each lane computes exactly
+    what a solo run of its clip computes. Selection is tabulated once on
+    the flat tables; then CUDA tensors go through the fusion scan kernel
+    (_scan_kernel: every step of every lane in one launch) and CPU tensors
+    through its plain version, the host loop _scan_loop. Both give the
+    same blocks, phases and votes, bit for bit.
 
-    Selection is tabulated once on the flat tables. A side without a
-    head/tail grid slices its candidates' pairs from dev.phase / dev.amp
-    (the grid's values). rand_bits (Q,) is a host array (no-phase aud+txt
-    mode; a lane picks its side with a torch.where). reset_mask (Q,) is a host array, the same in every lane;
-    at its steps the lane's carry becomes reset_code / reset_phase ((Q,)
-    and (Q, 8, 16), host arrays or device tensors, read on the device only),
-    so seeds carried on the device never come back to the host. A lane
-    without a reset at step 0 starts from code 0 and a zero phase, as in
-    the JAX package. Returns device tensors (blocks (Q, step), phases
-    (Q, 8, 16), votes (Q,))."""
-    use_phase, use_aud, use_txt = cfg.use_phase, cfg.use_aud, cfg.use_txt
-    if not (use_aud or use_txt):
+    A side without a head/tail grid slices its candidates' pairs from
+    dev.phase / dev.amp (the grid's values). rand_bits (Q,) is a host array
+    (no-phase aud+txt mode; a lane picks its side by its bit). reset_mask
+    (Q,) is a host array, the same in every lane; at its steps the lane's
+    carry becomes reset_code / reset_phase ((Q,) and (Q, 8, 16), host arrays
+    or device tensors, read on the device only), so seeds carried on the
+    device never come back to the host; host codes are checked against the
+    codebook first (check_codes). A lane without a reset at step 0
+    starts from code 0 and a zero phase, as in the JAX package. Returns
+    device tensors (blocks (Q, step), phases (Q, 8, 16), votes (Q,))."""
+    if not (cfg.use_aud or cfg.use_txt):
         raise ValueError("unsupported flag combination")
-    Q = (tables.aud_rank if use_aud else tables.txt_rank).shape[0]
+    Q = (tables.aud_rank if cfg.use_aud else tables.txt_rank).shape[0]
     C = clips
     if Q % C:
         raise ValueError(f"{Q} steps do not split into {C} lanes")
-    L = Q // C
-    count("steps", L)        # once, outside the per-step loop
+    count("steps", Q // C)   # once, outside the per-step work
     count("lanes", C)
     # Cross-window seed geometry: the kept code result[num_frames_code]
     # (appended index num_frames_code-1) must land in the final step's block.
@@ -559,17 +572,68 @@ def _fuse_scan_clips(cfg: MatchConfig, n_steps: int, clips: int,
         f"clip_len/step_sz/num_frames_code geometry is unsupported "
         f"(need (num_frames_code-1)//step_sz == n_steps-1)")
     seed_off = seed_i % cfg.step_sz
-    mask = np.asarray(reset_mask, bool).reshape(C, L)
+    mask = np.asarray(reset_mask, bool).reshape(C, Q // C)
     if not (mask == mask[:1]).all():
         raise ValueError("the reset steps must be the same in every lane")
     mask = mask[0]
+    device = dev.sig_rank.device
+    sel = _tabulate_selection(cfg, dev, tables, _int_scale(cfg))
+    if mask.any():
+        if not isinstance(reset_code, torch.Tensor):
+            check_codes(np.asarray(reset_code)[np.tile(mask, C)],
+                        dev.sig_rank.shape[0], "reset codes")
+        reset_code = to_device(reset_code, device, torch.int64)
+        reset_phase = to_device(reset_phase, device, torch.float32)
+    else:
+        reset_code = reset_phase = None
+    needs_rand = not cfg.use_phase and cfg.use_aud and cfg.use_txt
+    rand_bits = to_device(np.asarray(rand_bits) > 0, device) \
+        if needs_rand else None
+    scan = _scan_kernel if device.type == "cuda" else _scan_loop
+    return scan(cfg, n_steps, C, seed_off, dev, tables, sel, mask, rand_bits,
+                reset_code, reset_phase)
+
+
+def _scan_kernel(cfg: MatchConfig, n_steps: int, C: int, seed_off: int,
+                 dev: DeviceDatabase, tables: DeviceTables, sel, mask,
+                 rand_bits, reset_code, reset_phase):
+    """_scan_loop's steps as one launch of the fusion scan kernel
+    (ops/fusion_scan_cuda.py), for CUDA tensors. Only the host mask (L,)
+    goes up, by a non-blocking copy; nothing comes back."""
+    count("scan_kernel", 1)
+    sides = [side for side, use in (
+        ((tables.aud_block, dev.aud_ht, tables.aud_pos, tables.aud_seq,
+          tables.aud_start), cfg.use_aud),
+        ((tables.txt_block, dev.txt_ht, tables.txt_pos, tables.txt_seq,
+          tables.txt_start), cfg.use_txt)) if use]
+    pairs = [fusion_scan_cuda.Grid(grid, pos) if grid is not None else
+             fusion_scan_cuda.Sliced(dev.phase, dev.amp, seq, start)
+             for _, grid, pos, seq, start in sides] \
+        if cfg.use_phase else None
+    return fusion_scan_cuda.fusion_scan(
+        C, n_steps, seed_off, sel[0], sel[1], [s[0] for s in sides], pairs,
+        to_device(mask.astype(np.int32), dev.sig_rank.device),
+        reset_code, reset_phase,
+        None if rand_bits is None else rand_bits.to(torch.int32))
+
+
+def _scan_loop(cfg: MatchConfig, n_steps: int, C: int, seed_off: int,
+               dev: DeviceDatabase, tables: DeviceTables, sel, mask,
+               rand_bits, reset_code, reset_phase):
+    """The fusion scan's plain version: a host loop, one iteration per step
+    of a lane, every iteration advancing all C lanes with batched gathers
+    (the launches of one clip, C clips' work). sel: _tabulate_selection's
+    pair on the flat tables; mask (L,) the host reset steps; rand_bits,
+    reset_code and reset_phase flat device tensors or None."""
+    use_phase, use_aud, use_txt = cfg.use_phase, cfg.use_aud, cfg.use_txt
+    Q = sel[0].shape[0]
+    L = Q // C
     device = dev.sig_rank.device
 
     def lanes(x):
         return None if x is None else x.reshape((C, L) + x.shape[1:])
 
-    sel_a, sel_b = map(lanes, _tabulate_selection(cfg, dev, tables,
-                                                  _int_scale(cfg)))
+    sel_a, sel_b = map(lanes, sel)
     aud_block, txt_block = lanes(tables.aud_block), lanes(tables.txt_block)
 
     def side_pairs(grid, pos, seq, start):
@@ -590,11 +654,8 @@ def _fuse_scan_clips(cfg: MatchConfig, n_steps: int, clips: int,
                                tables.aud_start) if use_aud else None
         txt_pairs = side_pairs(dev.txt_ht, tables.txt_pos, tables.txt_seq,
                                tables.txt_start) if use_txt else None
-    if mask.any():
-        reset_code = lanes(to_device(reset_code, device, torch.int64))
-        reset_phase = lanes(to_device(reset_phase, device, torch.float32))
-    if rand_bits is not None:
-        rand_bits = lanes(to_device(np.asarray(rand_bits) > 0, device))
+    reset_code, reset_phase, rand_bits = map(
+        lanes, (reset_code, reset_phase, rand_bits))
 
     ar = torch.arange(C, device=device)
     prev_code = torch.zeros((C,), dtype=torch.int64, device=device)

@@ -16,6 +16,8 @@ codebook/Speech2GestureMatching/data_processing.py:197-353:
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 
 
@@ -33,33 +35,37 @@ def stack_post(x: np.ndarray, n_stack: int, interval: int) -> np.ndarray:
     return out.reshape(n, T, n_stack * F)
 
 
+def wavvq_shifts(T: int, n_stack: int = 6,
+                 num_frames_code: int = 30) -> np.ndarray:
+    """The 11 two-sided stacking shifts of stack_wavvq: frame t slot s reads
+    codes[t + shifts[s]] (zero where out of range)."""
+    fi = T / num_frames_code  # fractional frame interval (398/30)
+    past = [-int((n_stack - 1 - i) * fi) for i in range(n_stack)]
+    future = [int(j * fi) for j in range(1, n_stack)]
+    return np.array(past + future, dtype=np.int64)
+
+
 def stack_wavvq(wavvq: np.ndarray, n_stack: int = 6,
-                num_frames_code: int = 30) -> np.ndarray:
-    """(n, 398, 2) int codes -> (n, 398, 22) two-sided stacked features.
+                num_frames_code: int = 30,
+                frames: Optional[np.ndarray] = None) -> np.ndarray:
+    """(n, 398, 2) int codes -> (n, 398, 22) two-sided stacked features, or
+    (n, len(frames), 22) at the positions ``frames`` alone.
 
     Matches the '20221101' two-sided construction at
     data_processing.py:296-335: part 1 right-shifts by
     int((n_stack-i-1) * 398/30) for i in 0..5 (6 past-aligned frames,
     current frame last); part 2 left-shifts by int(i * 398/30) for i in 1..5
     (5 future frames; the i=0 duplicate of the current frame is dropped).
-    Zero padding everywhere a shift runs off the sequence.
+    Zero padding everywhere a shift runs off the sequence. Each position is
+    gathered on its own, so staging that keeps a few frames stacks only
+    those.
     """
     n, T, G = wavvq.shape
-    fi = T / num_frames_code  # fractional frame interval (398/30)
-
-    part1 = np.zeros((n, T, n_stack, G), dtype=wavvq.dtype)
-    for i in range(n_stack):
-        pre = int((n_stack - i - 1) * fi)
-        part1[:, pre:, i, :] = wavvq[:, : T - pre]
-    part1 = part1.reshape(n, T, n_stack * G)
-
-    part2 = np.zeros((n, T, n_stack, G), dtype=wavvq.dtype)
-    for i in range(n_stack):
-        post = int(i * fi)
-        part2[:, : T - post, i, :] = wavvq[:, post:]
-    part2 = np.delete(part2, 0, axis=2).reshape(n, T, (n_stack - 1) * G)
-
-    return np.concatenate((part1, part2), axis=-1)
+    frames = np.arange(T) if frames is None else np.asarray(frames)
+    src = frames[:, None] + wavvq_shifts(T, n_stack, num_frames_code)
+    out = np.take(wavvq, np.clip(src, 0, T - 1), axis=1)  # (n, F, 11, G)
+    out[:, (src < 0) | (src >= T)] = 0
+    return out.reshape(n, len(frames), -1)
 
 
 def interpolate_linear(x: np.ndarray, size: int) -> np.ndarray:
@@ -76,4 +82,5 @@ def interpolate_linear(x: np.ndarray, size: int) -> np.ndarray:
     lo = np.clip(lo, 0, T - 2)
     w = (coords - lo).astype(x.dtype if x.dtype.kind == "f" else np.float64)
     out = x[:, lo] * (1 - w)[None, :, None] + x[:, lo + 1] * w[None, :, None]
-    return out.astype(x.dtype if x.dtype.kind == "f" else np.float64)
+    return out.astype(x.dtype if x.dtype.kind == "f" else np.float64,
+                      copy=False)

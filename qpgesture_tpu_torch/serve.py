@@ -28,7 +28,7 @@ from torch import nn
 
 from .device import resolve_device, to_device
 from .match.device_staging import stage_context, stage_wavlm, stage_wavvq
-from .match.engine import CodeKNNEngine, _solo_resets
+from .match.engine import CodeKNNEngine, _solo_resets, check_codes
 from .match.oracle import CodeKNNOracle
 from .models.vqvae import VQVAE
 from .pipelines.database_builder import context_slots
@@ -323,6 +323,7 @@ def _pool_seeds(engine: CodeKNNEngine, n_streams: int, init_codes,
         codes0[i] = ic
         if ip is not None:
             phases0[i] = ip
+    check_codes(codes0, engine.dev.sig_rank.shape[0], "init codes")
     return codes0, phases0
 
 

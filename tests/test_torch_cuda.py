@@ -15,9 +15,12 @@ from qpgesture_tpu_torch.core.config import MATCH_PRESETS
 from qpgesture_tpu_torch.match.database import (stage_database,
                                                 stage_test_audio,
                                                 stage_test_context)
+from qpgesture_tpu_torch.match import engine as eng
 from qpgesture_tpu_torch.match.engine import CodeKNNEngine
-from qpgesture_tpu_torch.ops import flash_attention_cuda, levenshtein_cuda
+from qpgesture_tpu_torch.ops import (flash_attention_cuda, fusion_scan_cuda,
+                                     levenshtein_cuda)
 
+import scan_cases
 from fixtures import make_fixture
 
 pytestmark = pytest.mark.gpu
@@ -225,6 +228,62 @@ def test_predict_sharded_on_card_matches_one_device(cuda, preset, world,
         assert k1 >= 1 if preset == "wavvq" else k1 == 0
 
 
+def _kernel_against_loop(cuda, case):
+    """The card's fusion scan (the kernel, one launch) against the CPU
+    port's plain loop on the same inputs: blocks, phases and votes bit for
+    bit."""
+    want = eng._fuse_scan_clips(*case)
+    before = fusion_scan_cuda.launches
+    got = eng._fuse_scan_clips(*scan_cases.on_device(case, cuda))
+    torch.cuda.synchronize()
+    assert fusion_scan_cuda.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("C", [1, 16])
+@pytest.mark.parametrize("resets", ["start", "windows"])
+@pytest.mark.parametrize("flags,sliced", [
+    ("no_phase_aud", False), ("no_phase_both", False),
+    *[(f, s) for f in ("phase_aud", "phase_txt", "phase_both")
+      for s in (False, True)]])
+def test_fusion_scan_kernel_matches_loop(cuda, flags, sliced, C, resets):
+    """Each flag combination, with pairs from the grid or sliced from phase
+    / amp (the PHASE_GRIDS_MAX_MB cap's path), one lane or 16, resets at
+    each lane's start or at every window (chain_windows=False, W = 3)."""
+    _kernel_against_loop(cuda, scan_cases.make_scan_case(
+        7 * C + len(flags), flags, sliced, C, 3, resets))
+
+
+@pytest.mark.parametrize("sliced", [False, True])
+def test_fusion_scan_kernel_long_lanes_at_full_width(cuda, sliced):
+    """Three lanes of 160 steps (20 windows, past a clip's 48) at 512
+    codes, the kernel's largest staged rows, and no reset: every lane
+    starts from code 0 and a zero phase."""
+    _kernel_against_loop(cuda, scan_cases.make_scan_case(
+        5, "phase_both", sliced, 3, 20, "none", P=512))
+
+
+@pytest.mark.parametrize("entry", ["predict", "predict_batch", "pool"])
+@pytest.mark.parametrize("code", [-1, 64])
+def test_fusion_scan_refuses_out_of_range_init_codes_on_card(cuda, entry,
+                                                            code):
+    """An init code outside the 64 codes is refused on the host, before the
+    kernel (which indexes the selection rows with it unchecked) is
+    launched; the card then serves a valid request as the CPU port does."""
+    from test_torch_fusion_scan import _engine, refused_codes
+    card, ta, tc = _engine(cuda)
+    before = fusion_scan_cuda.launches
+    refused_codes(card, ta, tc, code, entry)
+    assert fusion_scan_cuda.launches == before
+    got = card.predict(ta, tc, init_code=63)
+    torch.cuda.synchronize()
+    assert fusion_scan_cuda.launches == before + 1
+    np.testing.assert_array_equal(
+        got.codes, _engine()[0].predict(ta, tc, init_code=63).codes)
+
+
 def _wavvq_engines(cuda, n_test=4):
     rng = np.random.RandomState(14)
     fx = make_fixture(rng, n_seq=6, n_test=n_test, codebook=64)
@@ -256,9 +315,10 @@ def test_lane_scan_on_card_matches_cpu(cuda):
 
 
 def test_streaming_tick_and_push_make_no_host_sync(cuda):
-    """A StreamingPool tick and a StreamingSession push queue their work
-    without waiting for the card (torch's sync debug mode raises on any
-    synchronising call); their codes then equal the CPU port's."""
+    """A StreamingPool tick and a StreamingSession push queue their work,
+    the fusion scan kernel's mask upload included, without waiting for the
+    card (torch's sync debug mode raises on any synchronising call); their
+    codes then equal the CPU port's."""
     from qpgesture_tpu_torch.serve import StreamingPool, StreamingSession
     cpu, card, ta, tc = _wavvq_engines(cuda)
     outs = {}
@@ -271,12 +331,17 @@ def test_streaming_tick_and_push_make_no_host_sync(cuda):
         if name == "card":
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
+        scans = fusion_scan_cuda.launches
         try:
             a = pool.tick_device(ta[1:4], tc[1:4],
                                  active=np.array([True, False, True]))
             b = sess.push_window_device(ta[1], tc[1])
         finally:
             torch.cuda.set_sync_debug_mode("default")
+        # the card's tick and push each ran the scan kernel, its reset mask
+        # uploaded without a sync
+        assert fusion_scan_cuda.launches - scans == (2 if name == "card"
+                                                     else 0)
         outs[name] = (a.cpu().numpy(), b.cpu().numpy(),
                       *(x.cpu().numpy() for x in pool.state()))
     for g, w in zip(outs["card"], outs["cpu"]):
