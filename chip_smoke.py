@@ -16,6 +16,13 @@ but 6 scans on the card, so each must launch K3, the fusion scan kernel
   phase 6      K2 in float32 and bfloat16 against its plain version at
                its tile edges, hd 16/32/64; K2 / plain / SDPA times in
                both types (and K2 / SDPA at serve_batch's B=24);
+  phase 6b     K4 (w2v-BERT 2.0's relative-key attention) against its
+               plain version, hd 16/64, T up to 300; K4 / plain / SDPA
+               times at the pool's (16, 16, 199, 64) beside the
+               benchmark's relkey_roofline bound; raw-wav serving of the
+               shipped preset with w2v-BERT 2.0 at its published widths
+               (K4 once a layer), codes against host staging, features
+               against the benchmark's plain reference;
   phase 7      raw-wav serving of the shipped preset at full WavLM-Large
                width (24 layers, random weights), 3 requests of 6 int16
                windows, against host-staged serving, the eager attention
@@ -176,6 +183,13 @@ K2_ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # WavLM-Large features (unit scale after the last LayerNorm): float32 on
 # both sides, other summation orders through 24 layers.
 FEAT_ATOL = 2e-3
+# K4 against its plain version: float32 on both sides, summation order only
+# (an online softmax over 32-key tiles against the (T, T) logits)
+K4_ATOL = 1e-5
+# w2v-BERT 2.0 features against the benchmark's plain reference (relative
+# Frobenius error of a window): float32 on both sides, other summation
+# orders through 24 layers; the cell's enc_rel_err limit
+W2V_FEAT_RTOL = 1e-4
 # WavLM-Large at precision="default", card against CPU: the same bfloat16
 # operands, but another summation order (and the tensor cores' float32
 # accumulation) can move an activation across a bfloat16 rounding edge
@@ -614,6 +628,153 @@ def phase_k2(dev):
             f"kernel_ms={t_ms:.5f} library_ms={sdpa_ms:.5f} (SDPA) "
             f"bound_ms={b_ms:.5f} ({b_by})")
     return line
+
+
+def phase_k4(dev, rng, bundle, codes, signature, vqvae_gpu, data_mean,
+             data_std) -> dict:
+    """K4 (relative-key attention) against its plain version at a partial
+    tile, w2v-BERT's window at the pool's batch and a longer window; K4,
+    its plain version and SDPA (the relative-key term materialised as its
+    float32 attn_mask) at (16, 16, 199, 64), beside the bound of the
+    benchmark's relkey_roofline (benchmark/models/w2v_bert.py relkey_work
+    at the TF32 and HBM rates); then raw-wav serving with w2v-BERT 2.0 at
+    its published widths (24 layers, random weights): K4 once a layer, the
+    codes of host staging, the features against the benchmark's plain
+    reference. Returns the kernels-line fields and K4's launches."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from benchmark import spec, yardstick
+    from benchmark.reference import w2v_bert as ref_w2v_bert
+    from qpgesture_tpu_torch.core.config import MATCH_PRESETS
+    from qpgesture_tpu_torch.match import engine as eng
+    from qpgesture_tpu_torch.match.database import (stage_database,
+                                                    stage_test_audio,
+                                                    stage_test_context)
+    from qpgesture_tpu_torch.models.w2v_bert import W2VBert
+    from qpgesture_tpu_torch.ops import relkey_attention_cuda as K4
+    from qpgesture_tpu_torch.serve import RawWavServer
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    left, right = 64, 8
+
+    def inputs(B, H, T, hd):
+        q, k, v = torch.randn(3, B, T, H, hd, generator=gen,
+                              device=dev).transpose(2, 3)
+        return q, k, v, torch.randn(left + right + 1, hd, generator=gen,
+                                    device=dev)
+
+    max_err = 0.0
+    for B, H, T, hd in ((1, 4, 37, 64), (16, 16, 199, 64), (2, 16, 300, 64),
+                        (2, 3, 130, 16)):
+        q, k, v, e = inputs(B, H, T, hd)
+        got = K4.relkey_attention(q, k, v, e, left=left, right=right,
+                                  sm_scale=hd ** -0.5)
+        torch.cuda.synchronize()
+        err = float((got - K4.relkey_attention_plain(
+            q, k, v, e, left=left, right=right, sm_scale=hd ** -0.5)
+        ).abs().max())
+        max_err = max(max_err, err)
+        log(f"phase 6b K4 B={B} H={H} T={T} hd={hd}: max_abs_err {err:.3e} "
+            f"(tol {K4_ATOL})")
+        if err > K4_ATOL:
+            raise SystemExit(f"K4 disagrees with its plain version at "
+                             f"{(B, H, T, hd)}: {err}")
+
+    B, H, T, hd = 16, 16, 199, 64
+    q, k, v, e = inputs(B, H, T, hd)
+    scale = hd ** -0.5
+    mask = torch.gather(torch.matmul(q * scale, e.t()), 3, K4.distances(
+        T, left, right, dev).expand(B, H, T, T))
+    calls = {
+        "kernel": lambda: K4.relkey_attention(
+            q, k, v, e, left=left, right=right, sm_scale=scale),
+        "plain": lambda: K4.relkey_attention_plain(
+            q, k, v, e, left=left, right=right, sm_scale=scale),
+        "library": lambda: F.scaled_dot_product_attention(
+            q * scale, k, v, attn_mask=mask, scale=1.0),
+    }
+    sdpa_err = float((calls["library"]() - calls["plain"]()).abs().max())
+    ms = {name: device_ms(fn, 20) for name, fn in calls.items()}
+    call_ms = median_ms(calls["kernel"], 20)
+    w2v = spec.plugin("models", "w2v_bert")
+    ops, nbytes = w2v.relkey_work(B, H, T, hd, left + right + 1)
+    p = yardstick.H100_SXM
+    bound_ms = 1e3 * yardstick.least_seconds(ops, nbytes, p["tf32_flops"],
+                                             p["hbm_bytes"])
+    bound_by = "operations" if ops / p["tf32_flops"] >= \
+        nbytes / p["hbm_bytes"] else "bytes"
+    f32_ms = 1e3 * ops / F32_FLOPS
+    log(f"phase 6b K4 times at B={B} H={H} T={T} hd={hd}: kernel_ms="
+        f"{ms['kernel']:.5f} plain_ms={ms['plain']:.5f} library_ms="
+        f"{ms['library']:.5f} (SDPA with the term as attn_mask, max_abs_err "
+        f"vs plain {sdpa_err:.3e}) bound_ms={bound_ms:.5f} ({bound_by}, "
+        f"relkey_roofline's; at the float32 FMA peak {f32_ms:.5f}); one "
+        f"kernel call between two events {call_ms:.5f}")
+    del q, k, v, e, mask
+
+    # raw-wav serving with the published w2v-BERT
+    t0 = time.time()
+    torch.manual_seed(SEED)
+    encoder = W2VBert(device=dev)
+    feats_db = np.random.default_rng(SEED + 1).standard_normal(
+        (J, 199, encoder.cfg.hidden_size), dtype=np.float32)
+    cfg = MATCH_PRESETS["shipped"]
+    db = stage_database(cfg, bundle, codes, signature, wavlm=feats_db)
+    engine = eng.CodeKNNEngine(cfg, db, device=dev)
+    server = RawWavServer(engine, vqvae_gpu, encoder, data_mean, data_std)
+    wavs = [(rng.randn(W, 64000) * 3000).astype(np.int16)
+            for _ in range(N_REQUESTS + 1)]
+    ctxs = [rng.randn(W, 30, 1, 384).astype(np.float32)
+            for _ in range(N_REQUESTS + 1)]
+    log(f"phase 6b set-up: w2v-BERT 2.0, "
+        f"{sum(p.numel() for p in encoder.parameters())} parameters; "
+        f"{time.time() - t0:.1f} s")
+
+    def serve(r):
+        return server.serve(wavs[r], ctxs[r], init_code=0,
+                            rng=np.random.RandomState(cfg.seed))
+
+    serve(N_REQUESTS)                   # warm-up request
+    torch.cuda.synchronize()
+    req_ms = []
+    for r in range(N_REQUESTS):
+        before = K4.launches
+        t0 = time.perf_counter()
+        got_codes, poses = serve(r)
+        req_ms.append(1e3 * (time.perf_counter() - t0))
+        if K4.launches - before != encoder.cfg.num_hidden_layers:
+            raise SystemExit(f"request {r} launched K4 "
+                             f"{K4.launches - before} times, not once a "
+                             f"layer")
+        enc = encoder(torch.as_tensor(wavs[r], device=dev).float() / 32768.0)
+        want = engine.predict(
+            stage_test_audio(cfg, db, wavlm=enc.cpu().numpy()),
+            stage_test_context(db, ctxs[r]), init_code=0,
+            init_phase=np.zeros((8, 16), np.float32),
+            rng=np.random.RandomState(cfg.seed)).codes
+        if not np.array_equal(got_codes, want) or \
+                poses.shape != (W * 240, 135):
+            raise SystemExit(f"request {r}: w2v-BERT serving differs from "
+                             f"host staging")
+    wav = torch.as_tensor(wavs[0][:2], device=dev).float() / 32768.0
+    out = encoder(wav)
+    with open(os.path.join(REPO, "benchmark", "configs",
+                           "w2v-bert-2.0-j1024.json")) as f:
+        ref_cfg = {**json.load(f), **dataclasses.asdict(encoder.cfg)}
+    want = ref_w2v_bert.features(dict(encoder.state_dict()), ref_cfg, wav)
+    rel = float(((out - want).flatten(1).norm(dim=1)
+                 / want.flatten(1).norm(dim=1)).max())
+    log(f"phase 6b w2v-BERT serve p50 {statistics.median(req_ms):.3f} ms "
+        f"over {N_REQUESTS} requests of {W} windows; codes == host staging; "
+        f"features against the plain reference: "
+        f"relative error {rel:.3e} (tol {W2V_FEAT_RTOL})")
+    if rel > W2V_FEAT_RTOL:
+        raise SystemExit(f"w2v-BERT features differ from the reference by "
+                         f"{rel}")
+    return dict(max_abs_err=max_err, ms=ms["kernel"], plain_ms=ms["plain"],
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=ms["library"])
 
 
 def k2_times(dev, B: int) -> dict:
@@ -5566,6 +5727,7 @@ def main() -> int:
     from qpgesture_tpu_torch.ops import flash_attention_cuda as K2
     from qpgesture_tpu_torch.ops import fusion_scan_cuda as K3
     from qpgesture_tpu_torch.ops import levenshtein_cuda as K1
+    from qpgesture_tpu_torch.ops import relkey_attention_cuda as K4
     from qpgesture_tpu_torch.serve import ServingPipeline
     k3_launches = 0
 
@@ -5584,8 +5746,9 @@ def main() -> int:
 
     # -- phase 2: build, one nvcc per source, all at once -------------------
     t0 = time.time()
-    cuda_build.build_all([K1.SOURCE, K2.SOURCE, K3.SOURCE])
-    log(f"phase 2 build: {K1.SOURCE} + {K2.SOURCE} + {K3.SOURCE} "
+    cuda_build.build_all([K1.SOURCE, K2.SOURCE, K3.SOURCE, K4.SOURCE])
+    log(f"phase 2 build: {K1.SOURCE} + {K2.SOURCE} + {K3.SOURCE} + "
+        f"{K4.SOURCE} "
         f"{time.time() - t0:.2f} s")
     phase_wall("phases 1-2")
 
@@ -5792,6 +5955,17 @@ def main() -> int:
     phase_wall("phase 6")
     K3.launches = 0                 # phase 6 does not scan
 
+    # -- phase 6b: K4 and raw-wav serving with w2v-BERT 2.0 ----------------
+    K4.launches = 0
+    k4_line = phase_k4(dev, np.random.RandomState(SEED + 6), bundle, codes,
+                       signature, model_gpu, data_mean, data_std)
+    k4_launches, K4.launches = K4.launches, 0
+    log(f"phase 6b K4 launches {k4_launches}")
+    if k4_launches == 0:
+        raise SystemExit("phase 6b encoded with w2v-BERT without K4")
+    k3_read("phase 6b")
+    phase_wall("phase 6b")
+
     # -- phase 7: raw-wav serving, shipped preset, WavLM-Large --------------
     k2_launches, shipped = phase_rawwav_shipped(
         dev, rng, bundle, codes, signature, model_gpu, model_cpu,
@@ -5994,6 +6168,13 @@ def main() -> int:
         "replaces": "none: the lax.scan of qpgesture_tpu/match/engine.py:750",
         "launches": k3_launches,
         **k3_times,
+    }, {
+        "name": "relkey_attention",
+        "route": "cuda",
+        "source": "qpgesture_tpu_torch/csrc/relkey_attention.cu",
+        "replaces": "none: the JAX package has no w2v-BERT",
+        "launches": k4_launches,
+        **k4_line,
     }]}
     log(f"total {time.time() - t_start:.1f} s")
     print(bench_line)

@@ -185,10 +185,31 @@ def _end2end_windows(wav: np.ndarray, max_frames: int = 0) -> np.ndarray:
     return wins
 
 
+def _feature_encoder_arg(args, who: str) -> str:
+    """The one 50 Hz feature encoder checkpoint flag given: wavlm or
+    w2v_bert; exits unless exactly one of the two is."""
+    given = [a for a in ("wavlm_checkpoint", "w2v_bert_checkpoint")
+             if getattr(args, a, None)]
+    if len(given) != 1:
+        raise SystemExit(f"{who} needs exactly one of --wavlm-checkpoint "
+                         f"and --w2v-bert-checkpoint")
+    return given[0]
+
+
+def _load_feature_encoder(args, device):
+    """WavLM or w2v-BERT from the checkpoint flag given: either returns
+    the (W, 199, D) features the wavlm modes stage."""
+    if _feature_encoder_arg(args, "the wavlm modes") == "wavlm_checkpoint":
+        from .models.wavlm import load_wavlm_checkpoint
+        return load_wavlm_checkpoint(args.wavlm_checkpoint, device=device)
+    from .models.w2v_bert import load_w2v_bert_checkpoint
+    return load_w2v_bert_checkpoint(args.w2v_bert_checkpoint, device=device)
+
+
 def _match_codes(args, wav: np.ndarray):
     """--model matching: window the audio, encode it (vq-wav2vec for the
-    wavvq presets, WavLM for every other), match against the staged
-    database. Returns ((W, 30) codes, the train bundle)."""
+    wavvq presets, WavLM or w2v-BERT for every other), match against the
+    staged database. Returns ((W, 30) codes, the train bundle)."""
     from .core.config import MATCH_PRESETS, MatchConfig
     from .core.schemas import (CodebookSignature, DatabaseBundle, load_codes,
                                load_wavlm, load_wavvq)
@@ -204,11 +225,12 @@ def _match_codes(args, wav: np.ndarray):
             raise SystemExit(f"--model matching needs "
                              f"--{req.replace('_', '-')}")
     preset = MATCH_PRESETS[args.preset]
-    ckpt_arg = "wavvq_checkpoint" if preset.audio_mode == "wavvq_feat" \
-        else "wavlm_checkpoint"
-    if not getattr(args, ckpt_arg):
-        raise SystemExit(f"--preset {args.preset} needs "
-                         f"--{ckpt_arg.replace('_', '-')}")
+    if preset.audio_mode == "wavvq_feat":
+        if not args.wavvq_checkpoint:
+            raise SystemExit(f"--preset {args.preset} needs "
+                             f"--wavvq-checkpoint")
+    else:
+        _feature_encoder_arg(args, f"--preset {args.preset}")
     windows = window_test_audio(wav)
     print(f"{windows.shape[0]} windows of 4 s")
 
@@ -228,9 +250,7 @@ def _match_codes(args, wav: np.ndarray):
         test_audio = stage_test_audio(
             cfg, db, wavvq=extract_wavvq(encoder, windows))
     else:
-        from .models.wavlm import load_wavlm_checkpoint
-        encoder = load_wavlm_checkpoint(args.wavlm_checkpoint,
-                                        device=args.device)
+        encoder = _load_feature_encoder(args, args.device)
         test_audio = stage_test_audio(
             cfg, db, wavlm=extract_wavlm(encoder, windows))
     test_context = None
@@ -687,9 +707,9 @@ def cmd_build_db(args):
         from .models.vq_wav2vec import load_vq_wav2vec_checkpoint
         wavvq_model = load_vq_wav2vec_checkpoint(args.wavvq_checkpoint,
                                                  device=dev)
-    if args.wavlm_checkpoint:
-        from .models.wavlm import load_wavlm_checkpoint
-        wavlm_model = load_wavlm_checkpoint(args.wavlm_checkpoint, device=dev)
+    if args.wavlm_checkpoint or args.w2v_bert_checkpoint:
+        wavlm_model = _load_feature_encoder(args, dev)
+        feat_name = "WavLM" if args.wavlm_checkpoint else "W2VBert"
 
     for split, recs in splits.items():
         if not recs:
@@ -709,8 +729,8 @@ def cmd_build_db(args):
             print(f"wrote {stem}_WavVQ.npz: {wavvq.shape}")
         if wavlm_model is not None:
             feats = builder.extract_wavlm(wavlm_model, bundle.wav)
-            np.savez_compressed(f"{stem}_WavLM.npz", wavlm=feats)
-            print(f"wrote {stem}_WavLM.npz: {feats.shape}")
+            np.savez_compressed(f"{stem}_{feat_name}.npz", wavlm=feats)
+            print(f"wrote {stem}_{feat_name}.npz: {feats.shape}")
 
 
 def cmd_phase(args):
@@ -1202,7 +1222,13 @@ def main(argv=None):
     g.add_argument("--wavvq-checkpoint",
                    help="fairseq vq-wav2vec .pt (--preset wavvq)")
     g.add_argument("--wavlm-checkpoint",
-                   help="Microsoft WavLM .pt (every preset but wavvq)")
+                   help="Microsoft WavLM .pt (every preset but wavvq; or "
+                        "--w2v-bert-checkpoint)")
+    g.add_argument("--w2v-bert-checkpoint",
+                   help="w2v-BERT 2.0 in transformers' layout (a directory "
+                        "with config.json and model.safetensors) or a "
+                        "state-dict file: the 50 Hz feature encoder in "
+                        "place of WavLM")
     g.add_argument("--end2end-checkpoint", metavar="CKPT",
                    help="reference Generator_gru weights (end2end_*.bin) "
                         "or a train-end2end output directory (its "
@@ -1216,7 +1242,7 @@ def main(argv=None):
     g.add_argument("--config")
     g.add_argument("--preset", default="wavvq", choices=PRESET_CHOICES,
                    help="match preset: wavvq presets encode with "
-                        "vq-wav2vec, every other with WavLM")
+                        "vq-wav2vec, every other with WavLM or w2v-BERT")
     g.add_argument("--out", default="./output")
     g.add_argument("--prefix", default="generated")
     g.add_argument("--smooth", action="store_true")
@@ -1355,6 +1381,11 @@ def main(argv=None):
     bd.add_argument("--vqvae-checkpoint")
     bd.add_argument("--wavvq-checkpoint")
     bd.add_argument("--wavlm-checkpoint")
+    bd.add_argument("--w2v-bert-checkpoint",
+                    help="w2v-BERT 2.0 (transformers' layout or a state "
+                         "dict) in place of WavLM: its features are written "
+                         "as <prefix>_<split>_<frames>_W2VBert.npz under the "
+                         "key wavlm, which --train-wavlm reads")
     bd.add_argument("--pae-checkpoint")
     bd.add_argument("--sentence-model",
                     help="MiniLM checkpoint dir for context embeddings (the "

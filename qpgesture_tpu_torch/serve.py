@@ -127,11 +127,12 @@ class RawWavServer:
     """Raw 16 kHz windows in, decoded poses out, the whole ingress on the
     device.
 
-    ``encoder`` is the audio encoder on the engine's device: a WavLM
-    (models/wavlm.py) returning features (W, F, D) for the wavlm modes, or
-    a VQWav2Vec (models/vq_wav2vec.py) returning codes (W, 398, 2) for the
-    wavvq mode. Context embeddings stay a host input: they come from the
-    transcript (TranscriptContextStager), not the audio. Selected codes
+    ``encoder`` is the audio encoder on the engine's device: a 50 Hz
+    feature encoder (WavLM, models/wavlm.py, or w2v-BERT,
+    models/w2v_bert.py) returning features (W, 199, D) for the wavlm
+    modes, or a VQWav2Vec (models/vq_wav2vec.py) returning codes (W, 398,
+    2) for the wavvq mode. Context embeddings stay a host input: they come
+    from the transcript (TranscriptContextStager), not the audio. Selected codes
     equal those of encoding the same windows, staging on the host and
     serving the staged queries (tests/test_torch_rawwav.py)."""
     engine: CodeKNNEngine

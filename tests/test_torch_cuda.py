@@ -18,7 +18,7 @@ from qpgesture_tpu_torch.match.database import (stage_database,
 from qpgesture_tpu_torch.match import engine as eng
 from qpgesture_tpu_torch.match.engine import CodeKNNEngine
 from qpgesture_tpu_torch.ops import (flash_attention_cuda, fusion_scan_cuda,
-                                     levenshtein_cuda)
+                                     levenshtein_cuda, relkey_attention_cuda)
 
 import scan_cases
 from fixtures import make_fixture
@@ -107,6 +107,53 @@ def test_flash_attention_kernel_takes_strided_views(cuda):
     a = flash_attention_cuda.gated_flash_attention(q, k, v, bias, gate)
     b = flash_attention_cuda.gated_flash_attention(*views, bias, gate)
     assert torch.equal(a, b)
+
+
+# K4 against its plain version: float32 on both sides, summation order only
+# (the plain version forms the (T, T) logits, the kernel an online softmax
+# over 32-key tiles); (B, T, H, hd) projections seen as (B, H, T, hd), as
+# w2v-BERT hands them. T = 37 is one partial tile, 199 w2v-BERT's window,
+# 300 a longer one: +8 is reached in every case, -64 from T = 65 on.
+@pytest.mark.parametrize("B,H,T,hd", [(1, 4, 37, 64), (16, 16, 199, 64),
+                                      (2, 16, 300, 64), (2, 3, 130, 16)])
+def test_relkey_kernel_matches_plain(cuda, B, H, T, hd):
+    g = torch.Generator(device=cuda).manual_seed(T)
+    q, k, v = torch.randn(3, B, T, H, hd, generator=g,
+                          device=cuda).transpose(2, 3)
+    emb = torch.randn(73, hd, generator=g, device=cuda)
+    before = relkey_attention_cuda.launches
+    got = relkey_attention_cuda.relkey_attention(
+        q, k, v, emb, left=64, right=8, sm_scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    assert relkey_attention_cuda.launches == before + 1
+    assert got.shape == (B, H, T, hd) and got.dtype == torch.float32
+    want = relkey_attention_cuda.relkey_attention_plain(
+        q, k, v, emb, left=64, right=8, sm_scale=hd ** -0.5)
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+def test_w2v_bert_on_card_launches_k4_every_layer(cuda):
+    """The published 24-layer w2v-BERT runs K4 once a layer (24 launches a
+    forward), no fallback; a 2-layer one of width 64 (K4 at head width 16)
+    gives the CPU port's features (float32 on both sides, summation
+    order only, features of unit scale)."""
+    from qpgesture_tpu_torch.models.w2v_bert import W2VBert, W2VBertConfig
+    torch.manual_seed(0)
+    wav = torch.randint(-8192, 8192, (2, 64000)).float() / 32768.0
+    model = W2VBert(device=cuda)
+    before = relkey_attention_cuda.launches
+    out = model(wav.to(cuda))
+    torch.cuda.synchronize()
+    assert relkey_attention_cuda.launches == before + 24
+    assert out.shape == (2, 199, 1024) and bool(torch.isfinite(out).all())
+    del model, out
+    small = W2VBertConfig(hidden_size=64, num_hidden_layers=2,
+                          num_attention_heads=4, intermediate_size=128)
+    cpu = W2VBert(small, device="cpu")
+    card = W2VBert(small, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    torch.testing.assert_close(card(wav.to(cuda)).cpu(), cpu(wav),
+                               atol=1e-4, rtol=0)
 
 
 def test_flash_attention_kernel_takes_unaligned_bias(cuda):
