@@ -23,6 +23,15 @@ but 6 scans on the card, so each must launch K3, the fusion scan kernel
                shipped preset with w2v-BERT 2.0 at its published widths
                (K4 once a layer), codes against host staging, features
                against the benchmark's plain reference;
+  phase 6c     K5 (vq-wav2vec's one-group GroupNorm + activation) against
+               its plain version at the 8 layers' frames of a clip (6
+               windows) and a batch (96), C = 32 with ragged T, GELU and
+               ReLU; K5 / plain / split-row var_mean + affine + GELU times
+               over the 8 layers beside the bound of 8 B an element at
+               3.35 TB/s;
+               only the launches of the wavvq phases' main-path work (9,
+               15, 17, 18, 21), each of which must launch K5, are counted
+               in the kernels line;
   phase 7      raw-wav serving of the shipped preset at full WavLM-Large
                width (24 layers, random weights), 3 requests of 6 int16
                windows, against host-staged serving, the eager attention
@@ -186,6 +195,12 @@ FEAT_ATOL = 2e-3
 # K4 against its plain version: float32 on both sides, summation order only
 # (an online softmax over 32-key tiles against the (T, T) logits)
 K4_ATOL = 1e-5
+# K5 against its plain version: another summation order of the moments in
+# float32 (tests/test_torch_cuda.py states the same tolerance)
+K5_ATOL = K5_RTOL = 1e-5
+# vq-wav2vec's 8 layers' frames of a 64000-sample window (the benchmark's
+# configuration: (512,10,5), (512,8,4), (512,4,2) x 3, (512,1,1) x 3)
+K5_FRAMES = (12799, 3198, 1598, 798, 398, 398, 398, 398)
 # w2v-BERT 2.0 features against the benchmark's plain reference (relative
 # Frobenius error of a window): float32 on both sides, other summation
 # orders through 24 layers; the cell's enc_rel_err limit
@@ -775,6 +790,92 @@ def phase_k4(dev, rng, bundle, codes, signature, vqvae_gpu, data_mean,
     return dict(max_abs_err=max_err, ms=ms["kernel"], plain_ms=ms["plain"],
                 bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=ms["library"])
+
+
+def phase_k5(dev) -> dict:
+    """K5 (one-group GroupNorm, affine and activation) against its plain
+    version at vq-wav2vec's 8 layers of a clip (B = 6) and a batch
+    (B = 96), C = 512, and at C = 32 / 3 with ragged T for both
+    activations; then K5, its plain version (F.group_norm + F.gelu, what
+    nn.GroupNorm + nn.GELU run) and the simplest library design that also
+    splits a window's moments across blocks (``library``, timed only as a
+    yardstick) over the 8 layers of each, beside the bound of reading and
+    writing each element once (8 B at 3.35 TB/s). Returns the kernels-line
+    fields (the clip's at the top level, the batch's under "batch")."""
+    import torch
+    import torch.nn.functional as F
+    from qpgesture_tpu_torch.ops import groupnorm_cuda as K5
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def inputs(B, C, T):
+        x = torch.randn(B, C, T, generator=gen, device=dev) * 3.0 + 0.5
+        return (x, 1.0 + 0.1 * torch.randn(C, generator=gen, device=dev),
+                0.1 * torch.randn(C, generator=gen, device=dev))
+
+    max_err = 0.0
+    cases = ([(B, 512, T, "gelu") for B in (6, 96) for T in K5_FRAMES[:5]]
+             + [(3, 32, T, act) for T in (1, 7, 399, 1001)
+                for act in ("gelu", "relu")] + [(2, 3, 7, "gelu")])
+    for B, C, T, act in cases:
+        x, w, b = inputs(B, C, T)
+        got = K5.groupnorm1_act(x, w, b, 1e-5, act)
+        torch.cuda.synchronize()
+        want = K5.groupnorm1_act_plain(x, w, b, 1e-5, act)
+        excess = float(((got - want).abs() - K5_RTOL * want.abs()).max())
+        err = float((got - want).abs().max())
+        max_err = max(max_err, err)
+        log(f"phase 6c K5 B={B} C={C} T={T} {act}: max_abs_err {err:.3e} "
+            f"(tol {K5_ATOL} + {K5_RTOL} |plain|)")
+        if excess > K5_ATOL:
+            raise SystemExit(f"K5 disagrees with its plain version at "
+                             f"{(B, C, T, act)}: {err}")
+        if not torch.equal(got, K5.groupnorm1_act(x, w, b, 1e-5, act)):
+            raise SystemExit(f"K5 gave other bits the second time at "
+                             f"{(B, C, T, act)}")
+        del x, got, want
+
+    def library(x, w, b):
+        """torch.var_mean over each flattened window (PyTorch's reduction
+        splits a long row across blocks), the affine folded into one
+        addcmul, then GELU: three launches."""
+        B = x.shape[0]
+        var, mean = torch.var_mean(x.view(B, -1), dim=1, correction=0)
+        scale = torch.rsqrt(var + 1e-5)[:, None] * w            # (B, C)
+        shift = b - mean[:, None] * scale
+        return F.gelu(torch.addcmul(shift[..., None], x, scale[..., None]))
+
+    out = {}
+    for label, B in (("clip", 6), ("batch", 96)):
+        layers = [inputs(B, 512, T) for T in K5_FRAMES]
+        lib_err = max(float((library(x, w, b) - K5.groupnorm1_act_plain(
+            x, w, b, 1e-5, "gelu")).abs().max()) for x, w, b in layers)
+        calls = {
+            "kernel": lambda: [K5.groupnorm1_act(x, w, b, 1e-5, "gelu")
+                               for x, w, b in layers],
+            "plain": lambda: [K5.groupnorm1_act_plain(x, w, b, 1e-5, "gelu")
+                              for x, w, b in layers],
+            "library": lambda: [library(x, w, b) for x, w, b in layers],
+        }
+        with torch.no_grad():
+            ms = {name: device_ms(fn, 5) for name, fn in calls.items()}
+            per_layer = [device_ms(lambda: K5.groupnorm1_act(
+                x, w, b, 1e-5, "gelu"), 10) for x, w, b in layers]
+        elems = B * 512 * sum(K5_FRAMES)
+        bound_ms = 1e3 * 8.0 * elems / HBM_BYTES_PER_S
+        log(f"phase 6c K5 times at B={B}, the 8 layers: kernel_ms="
+            f"{ms['kernel']:.5f} plain_ms={ms['plain']:.5f} library_ms="
+            f"{ms['library']:.5f} (var_mean + addcmul + GELU, max_abs_err "
+            f"{lib_err:.3e} against plain) bound_ms="
+            f"{bound_ms:.5f} (bytes: 8 B x {elems} elements); per layer "
+            f"{[round(t, 5) for t in per_layer]} ms")
+        out[label] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
+                          bound_ms=bound_ms, bound_by="bytes",
+                          library_ms=ms["library"],
+                          per_layer_ms=per_layer)
+        del layers, calls
+        torch.cuda.empty_cache()
+    return dict(max_abs_err=max_err, **out["clip"], batch=out["batch"])
 
 
 def k2_times(dev, B: int) -> dict:
@@ -5726,10 +5827,11 @@ def main() -> int:
     from qpgesture_tpu_torch.ops import cuda_build
     from qpgesture_tpu_torch.ops import flash_attention_cuda as K2
     from qpgesture_tpu_torch.ops import fusion_scan_cuda as K3
+    from qpgesture_tpu_torch.ops import groupnorm_cuda as K5
     from qpgesture_tpu_torch.ops import levenshtein_cuda as K1
     from qpgesture_tpu_torch.ops import relkey_attention_cuda as K4
     from qpgesture_tpu_torch.serve import ServingPipeline
-    k3_launches = 0
+    k3_launches = k5_launches = 0
 
     def k3_read(phase: str, elsewhere: int = 0) -> None:
         """Adds K3's launches since its counter was set to 0 (and those
@@ -5744,11 +5846,24 @@ def main() -> int:
                              f"kernel (K3)")
         k3_launches += n
 
+    def k5_read(phase: str) -> None:
+        """Adds K5's launches since its counter was set to 0, just before
+        the phase's vq-wav2vec work on the main path, to the total, and
+        exits when that work ran no K5."""
+        nonlocal k5_launches
+        n, K5.launches = K5.launches, 0
+        log(f"{phase} K5 launches {n}")
+        if n == 0:
+            raise SystemExit(f"{phase} ran vq-wav2vec without the GroupNorm "
+                             f"kernel (K5)")
+        k5_launches += n
+
     # -- phase 2: build, one nvcc per source, all at once -------------------
     t0 = time.time()
-    cuda_build.build_all([K1.SOURCE, K2.SOURCE, K3.SOURCE, K4.SOURCE])
+    cuda_build.build_all([K1.SOURCE, K2.SOURCE, K3.SOURCE, K4.SOURCE,
+                          K5.SOURCE])
     log(f"phase 2 build: {K1.SOURCE} + {K2.SOURCE} + {K3.SOURCE} + "
-        f"{K4.SOURCE} "
+        f"{K4.SOURCE} + {K5.SOURCE} "
         f"{time.time() - t0:.2f} s")
     phase_wall("phases 1-2")
 
@@ -5966,6 +6081,16 @@ def main() -> int:
     k3_read("phase 6b")
     phase_wall("phase 6b")
 
+    # -- phase 6c: K5, vq-wav2vec's GroupNorm + activation -----------------
+    K5.launches = 0
+    k5_line = phase_k5(dev)
+    log(f"phase 6c K5 launches {K5.launches} (checks and timings, left out "
+        f"of the kernels line's count)")
+    if K5.launches == 0:
+        raise SystemExit("phase 6c ran no K5")
+    torch.cuda.empty_cache()
+    phase_wall("phase 6c")
+
     # -- phase 7: raw-wav serving, shipped preset, WavLM-Large --------------
     k2_launches, shipped = phase_rawwav_shipped(
         dev, rng, bundle, codes, signature, model_gpu, model_cpu,
@@ -5980,7 +6105,9 @@ def main() -> int:
     phase_wall("phase 8")
 
     # -- phase 9: raw-wav serving, wavvq preset -----------------------------
+    K5.launches = 0
     k1_launches += phase_rawwav_wavvq(dev, rng, serving, db, cfg)
+    k5_read("phase 9")
     k3_read("phase 9")
     phase_wall("phase 9")
 
@@ -6017,10 +6144,11 @@ def main() -> int:
     # -- phase 15: database build on the card -> serve, and the CLIs -------
     k2_b8 = k2_times(dev, 8)
     with tempfile.TemporaryDirectory() as tmp:
-        K1.launches = K2.launches = 0
+        K1.launches = K2.launches = K5.launches = 0
         built = phase_build(dev, rng, shipped, model_cpu, tmp)
         phase_build_clis(dev, built, shipped["enc_cpu"], tmp)
         k1, k2 = K1.launches, K2.launches
+        k5_read("phase 15")
     log(f"phase 15 K2 at B=8 (extract_wavlm's batch), f32: kernel_ms="
         f"{k2_b8['ms']:.5f} library_ms={k2_b8['library_ms']:.5f} (SDPA) "
         f"bound_ms={k2_b8['bound_ms']:.5f} ({k2_b8['bound_by']}); phase 15 "
@@ -6066,7 +6194,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         pae_card = phase17_pae(dev, tmp)
         phase17_end2end(dev, rng, tmp, vq_out)
+        K5.launches = 0
         phase17_serve(dev, built, vq_out, pae_card)
+        k5_read("phase 17")
         k1, k2 = K1.launches, K2.launches
         log(f"phase 17 launches: K1 {k1}, K2 {k2} (WavLM is not on this "
             f"path)")
@@ -6079,7 +6209,7 @@ def main() -> int:
         phase_wall("phase 17")
 
         # -- phase 18: resync training, evaluation, raw-pose search --------
-        K1.launches = K2.launches = 0
+        K1.launches = K2.launches = K5.launches = 0
         phase18_rawpose(dev, rng, built, tmp)
         data, fake = phase18_resync_data(built, tmp)
         resync_dir = phase18_train_resync(dev, data, tmp)
@@ -6088,6 +6218,7 @@ def main() -> int:
         phase18_evaluate(dev, built, tmp, vq_out, generated)
         phase18_mfcc(dev, built)
         k1, k2 = K1.launches, K2.launches
+        k5_read("phase 18")
         log(f"phase 18 launches: K1 {k1} (warmup's bucket, generate "
             f"--resync and its library check), K2 {k2} (WavLM is not on "
             f"this path)")
@@ -6130,7 +6261,9 @@ def main() -> int:
     phase_wall("phase 20")
 
     # -- phase 21: the port's bench ------------------------------------------
+    K5.launches = 0
     bench_line, k1, k2 = phase21_bench(kind)
+    k5_read("phase 21")
     k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
     k3_read("phase 21")
     phase_wall("phase 21")
@@ -6175,6 +6308,13 @@ def main() -> int:
         "replaces": "none: the JAX package has no w2v-BERT",
         "launches": k4_launches,
         **k4_line,
+    }, {
+        "name": "groupnorm1",
+        "route": "cuda",
+        "source": "qpgesture_tpu_torch/csrc/groupnorm1_act.cu",
+        "replaces": "none: jnp in qpgesture_tpu/models/vq_wav2vec.py:77-79",
+        "launches": k5_launches,
+        **k5_line,
     }]}
     log(f"total {time.time() - t_start:.1f} s")
     print(bench_line)

@@ -453,12 +453,9 @@ def cmd_warmup(args):
 
     dev = resolve_device(args.device)
     if dev.type == "cuda":
-        from .ops import (cuda_build, flash_attention_cuda, fusion_scan_cuda,
-                          levenshtein_cuda)
+        from .ops import cuda_build
         t0 = time.perf_counter()
-        cuda_build.build_all([levenshtein_cuda.SOURCE,
-                              flash_attention_cuda.SOURCE,
-                              fusion_scan_cuda.SOURCE])
+        cuda_build.build_all(cuda_build.all_sources())
         print(f"kernels built: {time.perf_counter() - t0:7.1f} s")
     cfg, db = _load_match_db(args)
     engine = CodeKNNEngine(cfg, db, device=dev)

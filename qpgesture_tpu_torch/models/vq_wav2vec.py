@@ -9,6 +9,8 @@ samples) becomes (398, 2) int32 codes, the strings the Levenshtein matcher
   * conv stack [(512,10,5), (512,8,4), (512,4,2), (512,4,2), (512,4,2)]:
     Conv1d(bias=False) -> GroupNorm(1 group, affine, eps 1e-5, over (C, T))
     -> exact GELU (or ReLU), optional skip connections, then log(1 + |x|);
+    the group norm and the activation run as one call of kernel K5
+    (``ops/groupnorm_cuda.py``) on the card, its plain version on the CPU;
   * GumbelVectorQuantizer at inference: a weight projection (a Linear, or
     an MLP when trained with weight_proj_depth > 1) to groups * num_vars
     logits, and the per-group argmax. The codes are the output contract, so
@@ -23,6 +25,8 @@ import torch
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
+from ..ops import groupnorm_cuda
+from ..utils.profiling import count
 
 
 @dataclass(frozen=True)
@@ -45,7 +49,10 @@ def _act(name: str) -> nn.Module:
 
 class VQW2VFeatureExtractor(nn.Module):
     """(B, n_samples) -> (B, frames, C); 64000 samples -> 398 frames.
-    Block i is fairseq's Sequential (conv, dropout, group norm, act)."""
+    Block i is fairseq's Sequential (conv, dropout, group norm, act); the
+    forward runs its conv, then its group norm and act through K5's
+    wrapper. On the card the recorder's counter ``groupnorm_kernel`` is
+    the number of K5 calls of the forward."""
 
     def __init__(self, cfg: VQWav2VecConfig):
         super().__init__()
@@ -63,13 +70,19 @@ class VQW2VFeatureExtractor(nn.Module):
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         x = wav[:, None, :]
+        before = groupnorm_cuda.launches
         for block in self.conv_layers:
             residual = x
-            x = block(x)
+            norm = block[2]
+            x = groupnorm_cuda.groupnorm1_act(block[0](x), norm.weight,
+                                              norm.bias, norm.eps,
+                                              cfg.activation)
             if cfg.skip_connections and residual.shape[1] == x.shape[1]:
                 t = x.shape[-1]
                 r = residual[..., ::residual.shape[-1] // t][..., :t]
                 x = (x + r) * cfg.residual_scale
+        if groupnorm_cuda.launches != before:
+            count("groupnorm_kernel", (groupnorm_cuda.launches - before) // 2)
         if cfg.log_compression:
             x = torch.log1p(x.abs())
         return x.transpose(1, 2)

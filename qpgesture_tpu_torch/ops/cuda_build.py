@@ -67,6 +67,11 @@ def build_all(sources: Sequence[str]) -> Dict[str, str]:
     return paths
 
 
+def all_sources() -> list:
+    """The file names of every kernel source under csrc/, sorted."""
+    return sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
+
+
 def build(source: str) -> str:
     """Compile one source unless it was built already; returns the path of
     its shared library."""

@@ -18,7 +18,8 @@ from qpgesture_tpu_torch.match.database import (stage_database,
 from qpgesture_tpu_torch.match import engine as eng
 from qpgesture_tpu_torch.match.engine import CodeKNNEngine
 from qpgesture_tpu_torch.ops import (flash_attention_cuda, fusion_scan_cuda,
-                                     levenshtein_cuda, relkey_attention_cuda)
+                                     groupnorm_cuda, levenshtein_cuda,
+                                     relkey_attention_cuda)
 
 import scan_cases
 from fixtures import make_fixture
@@ -154,6 +155,74 @@ def test_w2v_bert_on_card_launches_k4_every_layer(cuda):
     card.load_state_dict(cpu.state_dict())
     torch.testing.assert_close(card(wav.to(cuda)).cpu(), cpu(wav),
                                atol=1e-4, rtol=0)
+
+
+# vq-wav2vec's eight layers' frames at a clip's 6 and a batch's 96 windows,
+# and a narrow C with ragged T (the scalar path where C T is not a multiple
+# of 4). Tolerance: the kernel sums the moments in another order than
+# PyTorch's, in float32 (mean and rstd ~1e-6 relative over 6.5 M
+# elements), which moves outputs of magnitude up to ~6 by ~6e-6.
+VQ_FRAMES = (12799, 3198, 1598, 798, 398)
+K5_CASES = ([(B, 512, T, "gelu") for B in (6, 96) for T in VQ_FRAMES]
+            + [(3, 32, T, act) for T in (1, 7, 399, 1001)
+               for act in ("gelu", "relu")] + [(2, 3, 7, "gelu")])
+
+
+@pytest.mark.parametrize("B,C,T,activation", K5_CASES)
+def test_groupnorm_kernel_matches_plain(cuda, B, C, T, activation):
+    g = torch.Generator(device=cuda).manual_seed(T)
+    x = torch.randn(B, C, T, generator=g, device=cuda) * 3.0 + 0.5
+    w = 1.0 + 0.1 * torch.randn(C, generator=g, device=cuda)
+    b = 0.1 * torch.randn(C, generator=g, device=cuda)
+    before = groupnorm_cuda.launches
+    got = groupnorm_cuda.groupnorm1_act(x, w, b, 1e-5, activation)
+    torch.cuda.synchronize()
+    assert groupnorm_cuda.launches == before + 2
+    want = groupnorm_cuda.groupnorm1_act_plain(x, w, b, 1e-5, activation)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_groupnorm_kernel_gives_the_same_bits_twice(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(6, 512, 12799, generator=g, device=cuda)
+    w, b = torch.randn(2, 512, generator=g, device=cuda)
+    first = groupnorm_cuda.groupnorm1_act(x, w, b, 1e-5, "gelu")
+    second = groupnorm_cuda.groupnorm1_act(x, w, b, 1e-5, "gelu")
+    assert torch.equal(first, second)
+
+
+def test_vq_wav2vec_on_card_launches_k5_every_layer(cuda):
+    """The benchmark's 8-layer vq-wav2vec: two K5 launches a layer, no
+    fallback, and the codes of the same modules run through PyTorch's
+    GroupNorm and GELU on the card (features to the kernel's tolerance, no
+    served code's logit more than the benchmark's 3e-5 below the best)."""
+    from qpgesture_tpu_torch.models.vq_wav2vec import (VQWav2Vec,
+                                                       VQWav2VecConfig)
+    torch.manual_seed(0)
+    cfg = VQWav2VecConfig(conv_layers=((512, 10, 5), (512, 8, 4))
+                          + ((512, 4, 2),) * 3 + ((512, 1, 1),) * 3,
+                          weight_proj_depth=2)
+    model = VQWav2Vec(cfg, device=cuda)
+    wav = (torch.randint(-8192, 8192, (2, 64000)).float()
+           / 32768.0).to(cuda)
+    fe = model.feature_extractor
+    before = groupnorm_cuda.launches
+    feats = fe(wav)
+    codes = model(wav)
+    torch.cuda.synchronize()
+    assert groupnorm_cuda.launches == before + 32
+    with torch.no_grad():
+        x = wav[:, None, :]
+        for block in fe.conv_layers:
+            x = block(x)
+        want_feats = torch.log1p(x.abs()).transpose(1, 2)
+        logits = model.vector_quantizer.weight_proj(want_feats).view(
+            2, 398, 2, 320)
+    torch.testing.assert_close(feats, want_feats, atol=1e-5, rtol=1e-5)
+    gap = logits.max(-1).values - logits.gather(
+        -1, codes.long()[..., None])[..., 0]
+    assert float(gap.max()) <= 3e-5
+    assert torch.equal(codes, logits.argmax(-1).to(torch.int32))
 
 
 def test_flash_attention_kernel_takes_unaligned_bias(cuda):
