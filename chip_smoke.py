@@ -32,6 +32,17 @@ but 6 scans on the card, so each must launch K3, the fusion scan kernel
                only the launches of the wavvq phases' main-path work (9,
                15, 17, 18, 21), each of which must launch K5, are counted
                in the kernels line;
+  phase 6d     K6 (WavLM's positional conv + bias + GELU + residual,
+               channels last) against its plain version (cuDNN's grouped
+               conv1d, trim, GELU, add) at B = 1 / 6 / 16 and T = 1 / 64 /
+               199 / 257, 1024 channels in groups of 64, and 768 in groups
+               of 48; K6 / plain / cuDNN's conv alone / the unfolded
+               torch.bmm route times at a clip's 6 and a tick's 16 windows
+               of 199 frames beside the FMA bound, cuDNN's conv and the
+               plain version again under cudnn_autotune, and K6 at each
+               frame tile; only the launches of the phases that run WavLM at
+               "highest" on the card (7, 10, 11, 12, 14, 15, 16, 22; each
+               must launch K6) are counted in the kernels line;
   phase 7      raw-wav serving of the shipped preset at full WavLM-Large
                width (24 layers, random weights), 3 requests of 6 int16
                windows, against host-staged serving, the eager attention
@@ -193,6 +204,10 @@ K4_ATOL = 1e-5
 # K5 against its plain version: another summation order of the moments in
 # float32 (tests/test_torch_cuda.py states the same tolerance)
 K5_ATOL = K5_RTOL = 1e-5
+# K6 against its plain version: each output sums 8192 float32 products in
+# another order than cuDNN's (tests/test_torch_cuda.py states the same
+# tolerance and why)
+K6_ATOL = 5e-5
 # vq-wav2vec's 8 layers' frames of a 64000-sample window (the benchmark's
 # configuration: (512,10,5), (512,8,4), (512,4,2) x 3, (512,1,1) x 3)
 K5_FRAMES = (12799, 3198, 1598, 798, 398, 398, 398, 398)
@@ -872,6 +887,127 @@ def phase_k5(dev) -> dict:
         del layers, calls
         torch.cuda.empty_cache()
     return dict(max_abs_err=max_err, **out["clip"], batch=out["batch"])
+
+
+def phase_k6(dev) -> dict:
+    """K6 (WavLM's positional conv, bias, GELU and residual, channels last)
+    against its plain version at B = 1 / 6 / 16 and T = 1 / 64 / 199 / 257
+    with WavLM-Large's 16 groups of 64 channels and 128 taps, and at
+    WavLM-Base's 768 channels in groups of 48; the same bits twice; then,
+    at a clip's 6 and a tick's 16 windows of 199 frames, the device times of
+    K6, its plain version (cuDNN's grouped conv1d on the transposed input,
+    the trim, GELU and the add: what the module computed), cuDNN's grouped
+    conv1d alone (``library``, which the port no longer calls) and the
+    unfolded float32 torch.bmm route (a second yardstick: the windows
+    copied out, one GEMM a group, bias, GELU, add), cuDNN's conv1d and the
+    plain version again under ``device.cudnn_autotune`` (cuDNN times its
+    algorithms for the shape and keeps the fastest), beside the bound of
+    the FLOPs at the float32 FMA rate, and K6 at each frame tile the
+    wrapper may pick. Returns the kernels-line fields (the clip's at the
+    top level, the tick's under "tick")."""
+    import torch
+    import torch.nn.functional as F
+    from qpgesture_tpu_torch.device import cudnn_autotune
+    from qpgesture_tpu_torch.ops import posconv_cuda as K6
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    k = 128
+
+    def inputs(B, T, C=1024, G=16):
+        feats = torch.randn(B, T, C, generator=gen, device=dev)
+        weight = torch.randn(C, C // G, k, generator=gen, device=dev) \
+            * (4.0 / (k * C)) ** 0.5
+        bias = 0.1 * torch.randn(C, generator=gen, device=dev)
+        return feats, weight, K6.pack_weight(weight, G), bias, G
+
+    max_err, failed = 0.0, []
+    cases = [(B, T, 1024) for B in (1, 6, 16) for T in (1, 64, 199, 257)]
+    with torch.no_grad():
+        for B, T, C in cases + [(3, 199, 768)]:
+            feats, weight, packed, bias, G = inputs(B, T, C)
+            got = K6.posconv(feats, packed, bias)
+            torch.cuda.synchronize()
+            want = K6.posconv_plain(feats, weight, bias, G)
+            err = float((got - want).abs().max())
+            max_err = max(max_err, err)
+            log(f"phase 6d K6 B={B} T={T} C={C} (tile "
+                f"{K6.frame_tile(B, T, G, C // G, k, K6.sm_count(dev))}): "
+                f"max_abs_err {err:.3e} (tol {K6_ATOL})")
+            if not err <= K6_ATOL:
+                failed.append(f"K6 disagrees with its plain version at "
+                              f"{(B, T, C)}: {err}")
+            if not torch.equal(got, K6.posconv(feats, packed, bias)):
+                failed.append(f"K6 gave other bits the second time at "
+                              f"{(B, T, C)}")
+            del feats, weight, packed, bias, got, want
+    if failed:
+        raise SystemExit("; ".join(failed))
+
+    def library(feats, weight, bias, G):
+        """cuDNN's grouped conv1d alone, on the transposed input."""
+        return F.conv1d(feats.transpose(1, 2), weight, bias, padding=k // 2,
+                        groups=G)
+
+    def unfolded(feats, weight, bias, G):
+        """Each frame's k x C/G window copied out (B T, G, C/G k), one
+        float32 GEMM a group, then bias, GELU and the add."""
+        B, T, C = feats.shape
+        cg = C // G
+        cols = F.pad(feats, (0, 0, k // 2, k // 2)).unfold(1, k, 1)[:, :T]
+        cols = cols.reshape(B * T, G, cg * k).transpose(0, 1)
+        w = weight.reshape(G, cg, cg * k).transpose(1, 2)
+        y = torch.bmm(cols, w).transpose(0, 1).reshape(B, T, C)
+        return feats + F.gelu(y + bias)
+
+    out = {}
+    with torch.no_grad():
+        for label, B in (("clip", 6), ("tick", 16)):
+            feats, weight, packed, bias, G = inputs(B, 199)
+            bmm_err = float((unfolded(feats, weight, bias, G) - K6.
+                             posconv_plain(feats, weight, bias, G)).abs().max())
+            calls = {
+                "kernel": lambda: K6.posconv(feats, packed, bias),
+                "plain": lambda: K6.posconv_plain(feats, weight, bias, G),
+                "library": lambda: library(feats, weight, bias, G),
+                "bmm": lambda: unfolded(feats, weight, bias, G),
+            }
+            ms = {name: device_ms(fn, 10) for name, fn in calls.items()}
+            want = calls["plain"]()
+            with cudnn_autotune():
+                tuned_err = float((calls["plain"]() - want).abs().max())
+                ms.update({name + "_tuned": device_ms(calls[name], 10)
+                           for name in ("library", "plain")})
+            tiles = {tile: device_ms(lambda: K6.launch(feats, packed, bias,
+                                                       tile), 10)
+                     for tile in range(K6.MIN_TILE, K6.MAX_TILE + 1,
+                                       K6.TILE_STEP)}
+            tile = K6.frame_tile(B, 199, G, 64, k, K6.sm_count(dev))
+            flops = 2.0 * B * 199 * 1024 * 64 * k
+            bound_ms = 1e3 * flops / F32_FLOPS
+            log(f"phase 6d K6 times at B={B}, T=199: kernel_ms="
+                f"{ms['kernel']:.5f} (tile {tile}, "
+                f"{flops / ms['kernel'] / 1e9:.1f} TFLOP/s) plain_ms="
+                f"{ms['plain']:.5f} library_ms={ms['library']:.5f} (cuDNN's "
+                f"grouped conv1d alone, "
+                f"{flops / ms['library'] / 1e9:.1f} TFLOP/s) bmm_ms="
+                f"{ms['bmm']:.5f} (unfolded torch.bmm route, max_abs_err "
+                f"{bmm_err:.3e} against plain) library_tuned_ms="
+                f"{ms['library_tuned']:.5f} plain_tuned_ms="
+                f"{ms['plain_tuned']:.5f} (under cudnn_autotune, "
+                f"{flops / ms['library_tuned'] / 1e9:.1f} TFLOP/s alone, "
+                f"max_abs_err {tuned_err:.3e} against plain) "
+                f"bound_ms={bound_ms:.5f} "
+                f"(operations: {flops:.4g} FLOPs at {F32_FLOPS:.3g}); by "
+                f"tile {json.dumps({t: round(v, 5) for t, v in tiles.items()})}")
+            out[label] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
+                              bound_ms=bound_ms, bound_by="operations",
+                              library_ms=ms["library"], bmm_ms=ms["bmm"],
+                              library_tuned_ms=ms["library_tuned"],
+                              plain_tuned_ms=ms["plain_tuned"],
+                              tile=tile, tiles_ms=tiles)
+            del feats, weight, packed, bias, calls, want
+            torch.cuda.empty_cache()
+    return dict(max_abs_err=max_err, **out["clip"], tick=out["tick"])
 
 
 def k2_times(dev, B: int) -> dict:
@@ -5634,9 +5770,10 @@ def main() -> int:
     from qpgesture_tpu_torch.ops import fusion_scan_cuda as K3
     from qpgesture_tpu_torch.ops import groupnorm_cuda as K5
     from qpgesture_tpu_torch.ops import levenshtein_cuda as K1
+    from qpgesture_tpu_torch.ops import posconv_cuda as K6
     from qpgesture_tpu_torch.ops import relkey_attention_cuda as K4
     from qpgesture_tpu_torch.serve import ServingPipeline
-    k3_launches = k5_launches = 0
+    k3_launches = k5_launches = k6_launches = 0
 
     def k3_read(phase: str, elsewhere: int = 0) -> None:
         """Adds K3's launches since its counter was set to 0 (and those
@@ -5663,12 +5800,24 @@ def main() -> int:
                              f"kernel (K5)")
         k5_launches += n
 
+    def k6_read(phase: str) -> None:
+        """Adds K6's launches since its counter was set to 0, just before
+        the phase's WavLM work at "highest" on the card, to the total, and
+        exits when that work ran no K6."""
+        nonlocal k6_launches
+        n, K6.launches = K6.launches, 0
+        log(f"{phase} K6 launches {n}")
+        if n == 0:
+            raise SystemExit(f"{phase} ran WavLM at \"highest\" without the "
+                             f"positional conv kernel (K6)")
+        k6_launches += n
+
     # -- phase 2: build, one nvcc per source, all at once -------------------
     t0 = time.time()
     cuda_build.build_all([K1.SOURCE, K2.SOURCE, K3.SOURCE, K4.SOURCE,
-                          K5.SOURCE])
+                          K5.SOURCE, K6.SOURCE])
     log(f"phase 2 build: {K1.SOURCE} + {K2.SOURCE} + {K3.SOURCE} + "
-        f"{K4.SOURCE} + {K5.SOURCE} "
+        f"{K4.SOURCE} + {K5.SOURCE} + {K6.SOURCE} "
         f"{time.time() - t0:.2f} s")
     phase_wall("phases 1-2")
 
@@ -5896,10 +6045,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_wall("phase 6c")
 
+    # -- phase 6d: K6, WavLM's positional conv + GELU + residual -----------
+    K6.launches = 0
+    k6_line = phase_k6(dev)
+    log(f"phase 6d K6 launches {K6.launches} (checks and timings, left out "
+        f"of the kernels line's count)")
+    if K6.launches == 0:
+        raise SystemExit("phase 6d ran no K6")
+    torch.cuda.empty_cache()
+    phase_wall("phase 6d")
+
     # -- phase 7: raw-wav serving, shipped preset, WavLM-Large --------------
+    K6.launches = 0
     k2_launches, shipped = phase_rawwav_shipped(
         dev, rng, bundle, codes, signature, model_gpu, model_cpu,
         data_mean, data_std)
+    k6_read("phase 7")
     k3_read("phase 7")
     phase_wall("phase 7")
 
@@ -5917,20 +6078,26 @@ def main() -> int:
     phase_wall("phase 9")
 
     # -- phase 10: generate CLI ----------------------------------------------
+    K6.launches = 0
     phase_generate(rng, bundle, codes, signature, shipped["feats_db"],
                    shipped["enc_cpu"], model_cpu)
+    k6_read("phase 10")
     k3_read("phase 10")
     phase_wall("phase 10")
 
     # -- phase 11: batched serving ------------------------------------------
+    K6.launches = 0
     k1, k2, staged = phase_batch(dev, rng, serving, db, cfg, shipped,
                                  model_gpu, data_mean, data_std)
+    k6_read("phase 11")
     k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
     k3_read("phase 11")
     phase_wall("phase 11")
 
     # -- phase 12: streaming pools and sessions -----------------------------
+    K6.launches = 0
     k1, k2 = phase_streaming(dev, serving, staged)
+    k6_read("phase 12")
     k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
     k3_read("phase 12")
     phase_wall("phase 12")
@@ -5941,7 +6108,9 @@ def main() -> int:
     phase_wall("phase 13")
 
     # -- phase 14: transcript -> MiniLM -> context ingress ------------------
+    K6.launches = 0
     k2_launches += phase_transcript(dev, rng, shipped, staged["server"])
+    k6_read("phase 14")
     del staged
     k3_read("phase 14")
     phase_wall("phase 14")
@@ -5949,11 +6118,12 @@ def main() -> int:
     # -- phase 15: database build on the card -> serve, and the CLIs -------
     k2_b8 = k2_times(dev, 8)
     with tempfile.TemporaryDirectory() as tmp:
-        K1.launches = K2.launches = K5.launches = 0
+        K1.launches = K2.launches = K5.launches = K6.launches = 0
         built = phase_build(dev, rng, shipped, model_cpu, tmp)
         phase_build_clis(dev, built, shipped["enc_cpu"], tmp)
         k1, k2 = K1.launches, K2.launches
         k5_read("phase 15")
+        k6_read("phase 15")
     log(f"phase 15 K2 at B=8 (extract_wavlm's batch), f32: kernel_ms="
         f"{k2_b8['ms']:.5f} library_ms={k2_b8['library_ms']:.5f} (SDPA) "
         f"bound_ms={k2_b8['bound_ms']:.5f} ({k2_b8['bound_by']}); phase 15 "
@@ -5966,8 +6136,9 @@ def main() -> int:
 
     # -- phase 16: matching surface and generate extras --------------------
     with tempfile.TemporaryDirectory() as tmp:
-        K1.launches = K2.launches = 0
+        K1.launches = K2.launches = K6.launches = 0
         phase16_tables(dev, shipped, model_gpu, data_mean, data_std)
+        k6_read("phase 16")
         phase16_reference_ties(dev, serving, reference, requests, bundle,
                                codes, signature, wavvq)
         phase16_release(tmp, bundle, codes, signature, wavvq, clips,
@@ -6070,7 +6241,9 @@ def main() -> int:
     phase_wall("phase 21")
 
     # -- phase 22: the port's examples ---------------------------------------
+    K6.launches = 0
     k1, k2 = phase22_examples("cuda", smi)
+    k6_read("phase 22")
     k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
     k3_read("phase 22")
     phase_wall("phase 22")
@@ -6116,6 +6289,13 @@ def main() -> int:
         "replaces": "none: jnp in qpgesture_tpu/models/vq_wav2vec.py:77-79",
         "launches": k5_launches,
         **k5_line,
+    }, {
+        "name": "posconv",
+        "route": "cuda",
+        "source": "qpgesture_tpu_torch/csrc/posconv.cu",
+        "replaces": "none: XLA's conv in qpgesture_tpu/models/wavlm.py:288-295",
+        "launches": k6_launches,
+        **k6_line,
     }]}
     log(f"total {time.time() - t_start:.1f} s")
     print(bench_line)

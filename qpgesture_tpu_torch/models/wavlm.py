@@ -9,7 +9,9 @@ checkpoint loads with ``load_state_dict`` (``load_wavlm_checkpoint``).
     first block, 'layer_norm' mode layer-norms every block; exact GELU;
   * feature LayerNorm + Linear projection to the encoder width;
   * the encoder: weight-normed grouped conv positional embedding (k=128,
-    groups=16, SamePad trim) + GELU, post-LN or pre-LN layers;
+    groups=16, SamePad trim) + GELU and the residual, at "highest" one call
+    of kernel K6 (``ops/posconv_cuda.py``) on the card, its plain version on
+    the CPU; post-LN or pre-LN layers;
   * WavLMAttention with the T5-style bucketed relative position bias
     (computed once in layer 0, shared down the stack) and WavLM's gated
     relative position bias. Attention runs through kernel K2
@@ -58,8 +60,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
-from ..ops import flash_attention_cuda
+from ..ops import flash_attention_cuda, posconv_cuda
 from ..ops.precision import matmul_bf16x3, mm_f32
+from ..utils.profiling import count
 
 LN_EPS = 1e-6       # flax nn.LayerNorm's default, as the JAX package uses
 NORM_EPS = 1e-5     # group norm and wav normalisation, as the JAX code writes
@@ -107,18 +110,24 @@ class WavLMConfig:
                    max_distance=1280)
 
 
-def bf16_copy(module: nn.Module, key: str, make) -> torch.Tensor:
-    """A bfloat16 weight derived from `module`'s parameters by make(),
-    kept on the module and made again only when a parameter changes (in
-    place, as load_state_dict does, or by a move to another device)."""
+def derived_weight(module: nn.Module, key: str, make) -> torch.Tensor:
+    """A weight derived from `module`'s parameters by make(), kept on the
+    module and made again only when a parameter changes (in place, as
+    load_state_dict does, or by a move to another device)."""
     params = tuple(module.parameters(recurse=False))
     stamp = tuple((p.data_ptr(), p._version, p.device) for p in params)
-    cache = module.__dict__.setdefault("_bf16_weights", {})
+    cache = module.__dict__.setdefault("_derived_weights", {})
     hit = cache.get(key)
     if hit is None or hit[0] != stamp:
         with torch.no_grad():
-            hit = cache[key] = (stamp, make().to(torch.bfloat16))
+            hit = cache[key] = (stamp, make())
     return hit[1]
+
+
+def bf16_copy(module: nn.Module, key: str, make) -> torch.Tensor:
+    """derived_weight of make() rounded to bfloat16."""
+    return derived_weight(module, "bf16 " + key,
+                          lambda: make().to(torch.bfloat16))
 
 
 def matmul_weight(module: nn.Module, x: torch.Tensor, key: str, make,
@@ -377,6 +386,12 @@ class WeightNormConv1d(nn.Module):
         return F.conv1d(x, self.weight(), self.bias, padding=self.padding,
                         groups=self.groups)
 
+    def packed(self) -> torch.Tensor:
+        """weight() in kernel K6's layout (``posconv_cuda.pack_weight``),
+        made again only when a parameter changes."""
+        return derived_weight(self, "packed", lambda: posconv_cuda.pack_weight(
+            self.weight(), self.groups))
+
     def forward_bf16(self, x: torch.Tensor,
                      precision: str = "default") -> torch.Tensor:
         """The "default" or "high" precision, channels last: (B, T, C) ->
@@ -434,6 +449,9 @@ class WavLM(nn.Module):
                              f"of the JAX package's {PRECISIONS}")
         self.cfg = cfg
         dev = resolve_device(device)
+        if dev.type == "cuda" and cfg.precision == "highest":
+            posconv_cuda.check_shape(
+                cfg.encoder_embed_dim // cfg.conv_pos_groups, cfg.conv_pos)
         self.feature_extractor = ConvFeatureExtractor(cfg)
         embed = cfg.conv_feature_layers[-1][0]
         self.layer_norm = nn.LayerNorm(embed, eps=LN_EPS)
@@ -450,7 +468,12 @@ class WavLM(nn.Module):
     def forward(self, wav: torch.Tensor,
                 output_layer: Optional[int] = None) -> torch.Tensor:
         """(B, n_samples) float32 wav -> (B, frames, D) float32 features
-        (extract_features, WavLM.py:323-376)."""
+        (extract_features, WavLM.py:323-376). On the card at "highest" the
+        positional conv runs through K6 and the recorder's counter
+        ``posconv_kernel`` is 1. K6 takes groups of 48 or 64 channels and a
+        kernel size that is a multiple of 8 (WavLM Base, Base+ and Large);
+        a model of other widths raises when it is built on the card at
+        "highest", and here if it was moved there after."""
         cfg = self.cfg
         if cfg.normalize:
             mean = wav.mean(dim=-1, keepdim=True)
@@ -459,13 +482,17 @@ class WavLM(nn.Module):
         feats = self.layer_norm(self.feature_extractor(wav))
         if hasattr(self, "post_extract_proj"):
             feats = linear(self.post_extract_proj, feats, cfg.precision)
-        if cfg.precision == "highest":
-            x_conv = self.encoder.pos_conv(
-                feats.transpose(1, 2)).transpose(1, 2)
+        conv = self.encoder.pos_conv[0]
+        if cfg.precision != "highest":
+            x = feats + F.gelu(conv.forward_bf16(feats, cfg.precision))
+        elif feats.is_cuda:
+            before = posconv_cuda.launches
+            x = posconv_cuda.posconv(feats, conv.packed(), conv.bias)
+            if posconv_cuda.launches != before:
+                count("posconv_kernel", 1)
         else:
-            x_conv = F.gelu(self.encoder.pos_conv[0].forward_bf16(
-                feats, cfg.precision))
-        x = feats + x_conv
+            x = posconv_cuda.posconv_plain(feats, conv.weight(), conv.bias,
+                                           conv.groups)
         if not cfg.layer_norm_first:
             x = self.encoder.layer_norm(x)
         n_layers = cfg.encoder_layers if output_layer is None \
@@ -492,7 +519,11 @@ def wavlm_config_from_checkpoint(raw_cfg: dict) -> WavLMConfig:
 def load_wavlm_checkpoint(path: str, device: DeviceLike = "cuda") -> WavLM:
     """Load a published WavLM .pt checkpoint (Microsoft's {"cfg", "model"}
     layout). Keys the port does not hold (``mask_emb``, training heads) are
-    ignored; a key the port needs and the checkpoint lacks raises."""
+    ignored; a key the port needs and the checkpoint lacks raises. On the
+    card at "highest" the positional conv's groups must be 48 or 64
+    channels wide (``encoder_embed_dim`` 768 or 1024, as in every
+    published WavLM): other widths raise when the model is built, before
+    its weights are loaded into it."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     cfg = wavlm_config_from_checkpoint(ckpt.get("cfg", {}))
     model = WavLM(cfg, device=device)

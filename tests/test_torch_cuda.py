@@ -19,7 +19,7 @@ from qpgesture_tpu_torch.match import engine as eng
 from qpgesture_tpu_torch.match.engine import CodeKNNEngine
 from qpgesture_tpu_torch.ops import (flash_attention_cuda, fusion_scan_cuda,
                                      groupnorm_cuda, levenshtein_cuda,
-                                     relkey_attention_cuda)
+                                     posconv_cuda, relkey_attention_cuda)
 
 import scan_cases
 from fixtures import make_fixture
@@ -223,6 +223,92 @@ def test_vq_wav2vec_on_card_launches_k5_every_layer(cuda):
         -1, codes.long()[..., None])[..., 0]
     assert float(gap.max()) <= 3e-5
     assert torch.equal(codes, logits.argmax(-1).to(torch.int32))
+
+
+# K6 against its plain version (cuDNN's grouped conv1d, trim, GELU and the
+# residual) at WavLM-Large's width: 16 groups of 64 channels, k = 128. Each
+# output sums 8192 float32 products (inputs of unit scale, weights of
+# ~0.006, sums up to ~3) in another order than cuDNN's, and adds inputs up
+# to ~5: up to 1.24e-5 apart over these cases on an H100; 5e-5 leaves room.
+K6_ATOL = 5e-5
+
+
+def _posconv_inputs(cuda, B, T, C=1024, G=16, k=128, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    feats = torch.randn(B, T, C, generator=g, device=cuda)
+    weight = torch.randn(C, C // G, k, generator=g, device=cuda) \
+        * (4.0 / (k * C)) ** 0.5
+    bias = 0.1 * torch.randn(C, generator=g, device=cuda)
+    return feats, weight, bias, G
+
+
+@pytest.mark.parametrize("B", [1, 6, 16])
+@pytest.mark.parametrize("T", [1, 64, 199, 257])
+def test_posconv_kernel_matches_plain(cuda, B, T):
+    feats, weight, bias, G = _posconv_inputs(cuda, B, T, seed=B * 1000 + T)
+    before = posconv_cuda.launches
+    with torch.no_grad():
+        got = posconv_cuda.posconv(feats, posconv_cuda.pack_weight(weight, G),
+                                   bias)
+        torch.cuda.synchronize()
+        assert posconv_cuda.launches == before + 1
+        want = posconv_cuda.posconv_plain(feats, weight, bias, G)
+    torch.testing.assert_close(got, want, atol=K6_ATOL, rtol=0)
+
+
+def test_posconv_kernel_takes_groups_of_48(cuda):
+    """WavLM-Base's width: 768 channels in 16 groups of 48."""
+    feats, weight, bias, G = _posconv_inputs(cuda, 3, 199, C=768)
+    with torch.no_grad():
+        got = posconv_cuda.posconv(feats, posconv_cuda.pack_weight(weight, G),
+                                   bias)
+        want = posconv_cuda.posconv_plain(feats, weight, bias, G)
+    torch.testing.assert_close(got, want, atol=K6_ATOL, rtol=0)
+
+
+def test_posconv_kernel_gives_the_same_bits_twice(cuda):
+    feats, weight, bias, G = _posconv_inputs(cuda, 16, 199, seed=7)
+    packed = posconv_cuda.pack_weight(weight, G)
+    with torch.no_grad():
+        first = posconv_cuda.posconv(feats, packed, bias)
+        second = posconv_cuda.posconv(feats, packed, bias)
+    assert torch.equal(first, second)
+
+
+def test_posconv_kernel_refuses_misuse_on_card(cuda):
+    feats, weight, bias, G = _posconv_inputs(cuda, 2, 50)
+    packed = posconv_cuda.pack_weight(weight, G)
+    with pytest.raises(RuntimeError, match="inference only"):
+        posconv_cuda.posconv(feats, packed, bias.requires_grad_(True))
+    bias.requires_grad_(False)
+    odd = _posconv_inputs(cuda, 2, 50, k=12)
+    with pytest.raises(ValueError, match="no kernel instantiation"):
+        posconv_cuda.posconv(odd[0], posconv_cuda.pack_weight(odd[1], G),
+                             odd[2])
+
+
+def test_wavlm_highest_on_card_runs_k6(cuda):
+    """A 2-layer WavLM at WavLM-Large's width and "highest": one K6 launch a
+    forward, the span counter ``posconv_kernel`` 1, and the CPU port's
+    features within 2e-4 (float32 on both sides, other summation orders
+    through the layers; features of unit scale)."""
+    from qpgesture_tpu_torch.models.wavlm import WavLM, WavLMConfig
+    from qpgesture_tpu_torch.utils import profiling
+    cfg = WavLMConfig(encoder_layers=2)
+    torch.manual_seed(3)
+    cpu = WavLM(cfg, device="cpu")
+    card = WavLM(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    wav = torch.from_numpy((np.random.RandomState(0).randn(2, 16000) * 0.2)
+                           .astype(np.float32))
+    before = posconv_cuda.launches
+    with profiling.recording() as prof:
+        with profiling.span("encode"):
+            got = card(wav.to(cuda))
+            torch.cuda.synchronize()
+    assert posconv_cuda.launches == before + 1
+    assert prof.take()[0]["counters"]["posconv_kernel"] == 1
+    assert float((got.cpu() - cpu(wav)).abs().max()) <= 2e-4
 
 
 def test_flash_attention_kernel_takes_unaligned_bias(cuda):
