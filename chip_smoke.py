@@ -43,6 +43,15 @@ but 6 scans on the card, so each must launch K3, the fusion scan kernel
                frame tile; only the launches of the phases that run WavLM at
                "highest" on the card (7, 10, 11, 12, 14, 15, 16, 22; each
                must launch K6) are counted in the kernels line;
+  phase 6e     K2's bias-free float32 instantiation (Whisper's plain
+               attention) against its plain version at its tile edges, hd
+               16/32/64, and at Whisper's (1, 20, 1500, 64) handed over as
+               (B, T, H, hd) views; kernel / plain / SDPA f32 times there
+               beside the bound of the benchmark's whisper_attn_roofline;
+               raw-wav serving of the shipped preset with Whisper-large-v3's
+               encoder at its published widths (each 24 s clip one 30 s
+               utterance, the bias-free K2 once a layer), codes against host
+               staging, features against the benchmark's plain reference;
   phase 7      raw-wav serving of the shipped preset at full WavLM-Large
                width (24 layers, random weights), 3 requests of 6 int16
                windows, against host-staged serving, the eager attention
@@ -215,6 +224,10 @@ K5_FRAMES = (12799, 3198, 1598, 798, 398, 398, 398, 398)
 # Frobenius error of a window): float32 on both sides, other summation
 # orders through 24 layers; the cell's enc_rel_err limit
 W2V_FEAT_RTOL = 1e-4
+# Whisper-large-v3's encoder features against the benchmark's plain
+# reference, as w2v-BERT's: float32 on both sides, other summation orders
+# through 32 layers; the cell's enc_rel_err limit
+WHISPER_FEAT_RTOL = 1e-4
 # WavLM-Large at precision="default", card against CPU: the same bfloat16
 # operands, but another summation order (and the tensor cores' float32
 # accumulation) can move an activation across a bfloat16 rounding edge
@@ -1008,6 +1021,158 @@ def phase_k6(dev) -> dict:
             del feats, weight, packed, bias, calls, want
             torch.cuda.empty_cache()
     return dict(max_abs_err=max_err, **out["clip"], tick=out["tick"])
+
+
+def phase_nobias(dev, rng, bundle, codes, signature, vqvae_gpu, data_mean,
+                 data_std):
+    """K2's bias-free float32 instantiation against its plain version at
+    the 128-query and 32-key tile edges and at Whisper's (1, 20, 1500, 64),
+    q, k, v handed over as the (B, T, H, hd) projections' views, as
+    Whisper's layers hand them; the kernel, its plain version and SDPA
+    float32 (PyTorch's own choice of backend) there, beside the bound of
+    the benchmark's whisper_attn_roofline (benchmark/models/whisper.py
+    attn_work at the TF32 and HBM rates); then raw-wav serving with
+    Whisper-large-v3's encoder at its published widths (random weights):
+    the bias-free K2 once a layer, the codes of host staging, the features
+    against the benchmark's plain reference. Returns the kernels-line
+    fields and the bias-free launches of the serving requests."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from benchmark import spec, yardstick
+    from benchmark.reference import whisper as ref_whisper
+    from qpgesture_tpu_torch.core.config import MATCH_PRESETS
+    from qpgesture_tpu_torch.match import engine as eng
+    from qpgesture_tpu_torch.match.database import (stage_database,
+                                                    stage_test_audio,
+                                                    stage_test_context)
+    from qpgesture_tpu_torch.models.whisper import WhisperEncoder
+    from qpgesture_tpu_torch.ops import flash_attention_cuda as K2
+    from qpgesture_tpu_torch.serve import RawWavServer
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tol = K2_ATOL["float32"]
+
+    def inputs(B, H, T, hd):
+        return torch.randn(3, B, T, H, hd, generator=gen,
+                           device=dev).transpose(2, 3)
+
+    max_err = 0.0
+    shapes = [(2, 4, T, 64) for T in (1, 31, 32, 33, 127, 128, 129)] + \
+        [(2, 4, 65, 16), (2, 4, 65, 32), (1, 20, 1500, 64)]
+    for B, H, T, hd in shapes:
+        q, k, v = inputs(B, H, T, hd)
+        got = K2.gated_flash_attention(q, k, v, None, sm_scale=hd ** -0.5)
+        torch.cuda.synchronize()
+        err = float((got - K2.gated_attention_plain(
+            q, k, v, None, sm_scale=hd ** -0.5)).abs().max())
+        max_err = max(max_err, err)
+        log(f"phase 6e K2 bias-free B={B} H={H} T={T} hd={hd}: "
+            f"max_abs_err={err:.3e} (tol {tol})")
+        if not err <= tol:
+            raise SystemExit(f"K2 bias-free disagrees with its plain "
+                             f"version at {(B, H, T, hd)}: {err}")
+
+    B, H, T, hd = 1, 20, 1500, 64
+    q, k, v = inputs(B, H, T, hd)
+    scale = hd ** -0.5
+    calls = {
+        "kernel": lambda: K2.gated_flash_attention(q, k, v, None,
+                                                   sm_scale=scale),
+        "plain": lambda: K2.gated_attention_plain(q, k, v, None,
+                                                  sm_scale=scale),
+        "library": lambda: F.scaled_dot_product_attention(q, k, v,
+                                                          scale=scale),
+    }
+    sdpa_err = float((calls["library"]() - calls["plain"]()).abs().max())
+    ms = {name: device_ms(fn, 20) for name, fn in calls.items()}
+    call_ms = median_ms(calls["kernel"], 20)
+    ops, nbytes = spec.plugin("models", "whisper").attn_work(B, H, T, hd)
+    p = yardstick.H100_SXM
+    bound_ms = 1e3 * yardstick.least_seconds(ops, nbytes, p["tf32_flops"],
+                                             p["hbm_bytes"])
+    bound_by = "operations" if ops / p["tf32_flops"] >= \
+        nbytes / p["hbm_bytes"] else "bytes"
+    log(f"phase 6e K2 bias-free times at B={B} H={H} T={T} hd={hd} "
+        f"float32: kernel_ms={ms['kernel']:.5f} plain_ms="
+        f"{ms['plain']:.5f} library_ms={ms['library']:.5f} (SDPA float32, "
+        f"max_abs_err vs plain {sdpa_err:.3e}) bound_ms={bound_ms:.5f} "
+        f"({bound_by}, whisper_attn_roofline's; at the float32 FMA peak "
+        f"{1e3 * ops / F32_FLOPS:.5f}); {ops / ms['kernel'] / 1e9:.1f} "
+        f"TFLOP/s; one kernel call between two events {call_ms:.5f}")
+    del q, k, v, calls
+
+    # raw-wav serving with the published Whisper-large-v3 encoder
+    t0 = time.time()
+    torch.manual_seed(SEED)
+    encoder = WhisperEncoder(device=dev)
+    layers = encoder.cfg.encoder_layers
+    feats_db = np.random.default_rng(SEED + 2).standard_normal(
+        (J, 200, encoder.cfg.d_model), dtype=np.float32)
+    cfg = MATCH_PRESETS["shipped"]
+    db = stage_database(cfg, bundle, codes, signature, wavlm=feats_db)
+    engine = eng.CodeKNNEngine(cfg, db, device=dev)
+    server = RawWavServer(engine, vqvae_gpu, encoder, data_mean, data_std)
+    wavs = [(rng.randn(W, 64000) * 3000).astype(np.int16)
+            for _ in range(N_REQUESTS + 1)]
+    ctxs = [rng.randn(W, 30, 1, 384).astype(np.float32)
+            for _ in range(N_REQUESTS + 1)]
+    log(f"phase 6e set-up: Whisper-large-v3's encoder, "
+        f"{sum(p.numel() for p in encoder.parameters())} parameters; "
+        f"{time.time() - t0:.1f} s")
+
+    def serve(r):
+        return server.serve(wavs[r], ctxs[r], init_code=0,
+                            rng=np.random.RandomState(cfg.seed))
+
+    serve(N_REQUESTS)                   # warm-up request
+    torch.cuda.synchronize()
+    K2.nobias_launches = 0
+    req_ms = []
+    for r in range(N_REQUESTS):
+        before = K2.nobias_launches
+        t0 = time.perf_counter()
+        got_codes, poses = serve(r)
+        req_ms.append(1e3 * (time.perf_counter() - t0))
+        if K2.nobias_launches - before != layers:
+            raise SystemExit(f"request {r} launched the bias-free K2 "
+                             f"{K2.nobias_launches - before} times, not "
+                             f"once a layer ({layers})")
+        launches = K2.nobias_launches
+        enc = encoder(torch.as_tensor(wavs[r], device=dev).float() / 32768.0,
+                      clips=1)
+        K2.nobias_launches = launches   # the check's own encode is not served
+        want = engine.predict(
+            stage_test_audio(cfg, db, wavlm=enc.cpu().numpy()),
+            stage_test_context(db, ctxs[r]), init_code=0,
+            init_phase=np.zeros((8, 16), np.float32),
+            rng=np.random.RandomState(cfg.seed)).codes
+        if not np.array_equal(got_codes, want) or \
+                poses.shape != (W * 240, 135):
+            raise SystemExit(f"request {r}: Whisper serving differs from "
+                             f"host staging")
+    served = K2.nobias_launches
+    wav = torch.as_tensor(wavs[0], device=dev).float() / 32768.0
+    out = encoder(wav, clips=1)
+    with open(os.path.join(REPO, "benchmark", "configs",
+                           "whisper-large-v3-j1024.json")) as f:
+        ref_cfg = {**json.load(f), **dataclasses.asdict(encoder.cfg)}
+    want = ref_whisper.features(dict(encoder.state_dict()), ref_cfg, wav)
+    rel = float(((out - want).flatten(1).norm(dim=1)
+                 / want.flatten(1).norm(dim=1)).max())
+    log(f"phase 6e Whisper serve p50 {statistics.median(req_ms):.3f} ms "
+        f"over {N_REQUESTS} requests of {W} windows (one 30 s utterance "
+        f"each); bias-free K2 launches {served}; codes == host staging; "
+        f"features against the plain reference: relative error {rel:.3e} "
+        f"(tol {WHISPER_FEAT_RTOL})")
+    if rel > WHISPER_FEAT_RTOL:
+        raise SystemExit(f"Whisper features differ from the reference by "
+                         f"{rel}")
+    del encoder, server, engine, out, want
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max_err, ms=ms["kernel"], plain_ms=ms["plain"],
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=ms["library"]), served
 
 
 def k2_times(dev, B: int) -> dict:
@@ -6055,6 +6220,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_wall("phase 6d")
 
+    # -- phase 6e: bias-free K2 and raw-wav serving with Whisper ----------
+    nobias_line, nobias_launches = phase_nobias(
+        dev, np.random.RandomState(SEED + 7), bundle, codes, signature,
+        model_gpu, data_mean, data_std)
+    if nobias_launches == 0:
+        raise SystemExit("phase 6e encoded with Whisper without the "
+                         "bias-free K2")
+    k3_read("phase 6e")
+    phase_wall("phase 6e")
+
     # -- phase 7: raw-wav serving, shipped preset, WavLM-Large --------------
     K6.launches = 0
     k2_launches, shipped = phase_rawwav_shipped(
@@ -6296,6 +6471,13 @@ def main() -> int:
         "replaces": "none: XLA's conv in qpgesture_tpu/models/wavlm.py:288-295",
         "launches": k6_launches,
         **k6_line,
+    }, {
+        "name": "nobias_flash_attention",
+        "route": "cuda",
+        "source": "qpgesture_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "none: the JAX package has no Whisper",
+        "launches": nobias_launches,
+        **nobias_line,
     }]}
     log(f"total {time.time() - t_start:.1f} s")
     print(bench_line)

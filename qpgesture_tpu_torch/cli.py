@@ -185,23 +185,30 @@ def _end2end_windows(wav: np.ndarray, max_frames: int = 0) -> np.ndarray:
     return wins
 
 
+_FEATURE_ENCODERS = ("wavlm_checkpoint", "w2v_bert_checkpoint",
+                     "whisper_checkpoint")
+
+
 def _feature_encoder_arg(args, who: str) -> str:
-    """The one 50 Hz feature encoder checkpoint flag given: wavlm or
-    w2v_bert; exits unless exactly one of the two is."""
-    given = [a for a in ("wavlm_checkpoint", "w2v_bert_checkpoint")
-             if getattr(args, a, None)]
+    """The one 50 Hz feature encoder checkpoint flag given: wavlm,
+    w2v_bert or whisper; exits unless exactly one of the three is."""
+    given = [a for a in _FEATURE_ENCODERS if getattr(args, a, None)]
     if len(given) != 1:
-        raise SystemExit(f"{who} needs exactly one of --wavlm-checkpoint "
-                         f"and --w2v-bert-checkpoint")
+        raise SystemExit(f"{who} needs exactly one of --wavlm-checkpoint, "
+                         f"--w2v-bert-checkpoint and --whisper-checkpoint")
     return given[0]
 
 
 def _load_feature_encoder(args, device):
-    """WavLM or w2v-BERT from the checkpoint flag given: either returns
-    the (W, 199, D) features the wavlm modes stage."""
-    if _feature_encoder_arg(args, "the wavlm modes") == "wavlm_checkpoint":
+    """WavLM, w2v-BERT or Whisper's encoder from the checkpoint flag given:
+    each returns the (W, 199 or 200, D) features the wavlm modes stage."""
+    flag = _feature_encoder_arg(args, "the wavlm modes")
+    if flag == "wavlm_checkpoint":
         from .models.wavlm import load_wavlm_checkpoint
         return load_wavlm_checkpoint(args.wavlm_checkpoint, device=device)
+    if flag == "whisper_checkpoint":
+        from .models.whisper import load_whisper_checkpoint
+        return load_whisper_checkpoint(args.whisper_checkpoint, device=device)
     from .models.w2v_bert import load_w2v_bert_checkpoint
     return load_w2v_bert_checkpoint(args.w2v_bert_checkpoint, device=device)
 
@@ -216,7 +223,8 @@ def _match_codes(args, wav: np.ndarray):
     from .match.database import (stage_database, stage_test_audio,
                                  stage_test_context)
     from .match.engine import CodeKNNEngine
-    from .pipelines.database_builder import (extract_wavlm, extract_wavvq,
+    from .pipelines.database_builder import (extract_utterances,
+                                             extract_wavlm, extract_wavvq,
                                              hashed_embed_fn,
                                              window_test_audio)
 
@@ -251,8 +259,10 @@ def _match_codes(args, wav: np.ndarray):
             cfg, db, wavvq=extract_wavvq(encoder, windows))
     else:
         encoder = _load_feature_encoder(args, args.device)
-        test_audio = stage_test_audio(
-            cfg, db, wavlm=extract_wavlm(encoder, windows))
+        extract = extract_utterances if getattr(
+            encoder, "takes_utterances", False) else extract_wavlm
+        test_audio = stage_test_audio(cfg, db,
+                                      wavlm=extract(encoder, windows))
     test_context = None
     if cfg.use_txt:
         # without transcripts the context is the empty-text embedding,
@@ -704,9 +714,12 @@ def cmd_build_db(args):
         from .models.vq_wav2vec import load_vq_wav2vec_checkpoint
         wavvq_model = load_vq_wav2vec_checkpoint(args.wavvq_checkpoint,
                                                  device=dev)
-    if args.wavlm_checkpoint or args.w2v_bert_checkpoint:
+    if any(getattr(args, a, None) for a in _FEATURE_ENCODERS):
         wavlm_model = _load_feature_encoder(args, dev)
-        feat_name = "WavLM" if args.wavlm_checkpoint else "W2VBert"
+        feat_name = {"wavlm_checkpoint": "WavLM",
+                     "w2v_bert_checkpoint": "W2VBert",
+                     "whisper_checkpoint": "Whisper"}[
+            _feature_encoder_arg(args, "build-db")]
 
     for split, recs in splits.items():
         if not recs:
@@ -725,7 +738,12 @@ def cmd_build_db(args):
             np.savez_compressed(f"{stem}_WavVQ.npz", wavvq=wavvq)
             print(f"wrote {stem}_WavVQ.npz: {wavvq.shape}")
         if wavlm_model is not None:
-            feats = builder.extract_wavlm(wavlm_model, bundle.wav)
+            # an encoder of utterances (Whisper) takes each recording's
+            # consecutive windows in runs of up to 30 s, as generate does
+            feats = builder.extract_utterances(
+                wavlm_model, bundle.wav, bundle.aux[:, 0]) if getattr(
+                wavlm_model, "takes_utterances", False) else \
+                builder.extract_wavlm(wavlm_model, bundle.wav)
             np.savez_compressed(f"{stem}_{feat_name}.npz", wavlm=feats)
             print(f"wrote {stem}_{feat_name}.npz: {feats.shape}")
 
@@ -1220,12 +1238,18 @@ def main(argv=None):
                    help="fairseq vq-wav2vec .pt (--preset wavvq)")
     g.add_argument("--wavlm-checkpoint",
                    help="Microsoft WavLM .pt (every preset but wavvq; or "
-                        "--w2v-bert-checkpoint)")
+                        "--w2v-bert-checkpoint or --whisper-checkpoint)")
     g.add_argument("--w2v-bert-checkpoint",
                    help="w2v-BERT 2.0 in transformers' layout (a directory "
                         "with config.json and model.safetensors) or a "
                         "state-dict file: the 50 Hz feature encoder in "
                         "place of WavLM")
+    g.add_argument("--whisper-checkpoint",
+                   help="Whisper-large-v3 (a WhisperModel or "
+                        "WhisperForConditionalGeneration directory in "
+                        "transformers' layout, or a state-dict file): its "
+                        "encoder in place of WavLM, each run of up to 7 "
+                        "windows one 30 s utterance")
     g.add_argument("--end2end-checkpoint", metavar="CKPT",
                    help="reference Generator_gru weights (end2end_*.bin) "
                         "or a train-end2end output directory (its "
@@ -1239,7 +1263,8 @@ def main(argv=None):
     g.add_argument("--config")
     g.add_argument("--preset", default="wavvq", choices=PRESET_CHOICES,
                    help="match preset: wavvq presets encode with "
-                        "vq-wav2vec, every other with WavLM or w2v-BERT")
+                        "vq-wav2vec, every other with WavLM, w2v-BERT or "
+                        "Whisper")
     g.add_argument("--out", default="./output")
     g.add_argument("--prefix", default="generated")
     g.add_argument("--smooth", action="store_true")
@@ -1383,6 +1408,14 @@ def main(argv=None):
                          "dict) in place of WavLM: its features are written "
                          "as <prefix>_<split>_<frames>_W2VBert.npz under the "
                          "key wavlm, which --train-wavlm reads")
+    bd.add_argument("--whisper-checkpoint",
+                    help="Whisper-large-v3's encoder (transformers' layout "
+                         "or a state dict) in place of WavLM, each "
+                         "recording's windows in runs of up to 7, each run "
+                         "one 30 s utterance (as generate encodes): its "
+                         "features are written as "
+                         "<prefix>_<split>_<frames>_Whisper.npz under the "
+                         "key wavlm")
     bd.add_argument("--pae-checkpoint")
     bd.add_argument("--sentence-model",
                     help="MiniLM checkpoint dir for context embeddings (the "

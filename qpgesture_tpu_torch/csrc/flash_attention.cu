@@ -2,6 +2,8 @@
 //
 //     out = softmax(q @ k^T * sm_scale + gate * bias) @ v
 //
+// and, bias-free, the plain softmax(q @ k^T * sm_scale) @ v of Whisper.
+//
 // Replaces the TPU kernel qpgesture_tpu/ops/flash_attention.py ::
 // gated_flash_attention (body _flash_kernel). The plain PyTorch version is
 // qpgesture_tpu_torch/ops/flash_attention.py :: gated_attention_plain; the
@@ -45,6 +47,17 @@
 // four warps of 8 x 4 logits over half of d with 8 x 8 accumulators over
 // half of each key tile (168 registers, a quarter less shared traffic per
 // FMA), both measured slower than these 4 x 4 tiles.
+//
+// float32 without bias or gate (nobias_flash_kernel_f32<HD, NW>, Whisper's
+// encoder at T = 1500, one utterance of 20 heads): the same body with the
+// bias and gate compiled out (a template flag, so that WavLM's gated kernel
+// compiles as before), P in one buffer instead of two, and 8 warps a block:
+// no (H, T, T) bias is read, which at T = 1500 would be 180 MB a layer. It
+// is bound as the gated kernel is, by shared memory feeding the 4 x 4 tiles
+// (half the FMA peak at best). At (1, 20, 1500, 64), blocks of 4 warps make
+// 480 blocks, 1.2 waves of three an SM; 8 warps make 240, one wave of two
+// an SM: 0.400 ms (28.8 TFLOP/s) against 0.525 ms on an H100, 128
+// registers and no spills either way.
 //
 // bfloat16 (the "default" encoder): tensor cores, FlashAttention-2's
 // register layout. Four warps own 16 query rows each; S = Q.K^T is
@@ -95,18 +108,23 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // ---- float32: register-tiled FMAs on the CUDA cores ----------------------
 
-template <int HD>
+// NW warps of 16 query rows each; BIASED reads an (H, T, T) bias and a
+// gate, whose tiles take a second buffer each; without them P needs one.
+template <int HD, int NW = 4, bool BIASED = true>
 struct F32Tiles {
-  static constexpr int NT = 128;         // 4 warps x 16 query rows
+  static constexpr int BQ = 16 * NW;     // query rows per block
+  static constexpr int NT = 32 * NW;     // threads
   static constexpr int RQ = 4;           // query rows per thread
   static constexpr int NSTAGE = 2;       // K / V / bias buffers
+  static constexpr int NP = BIASED ? NSTAGE : 1;  // bias / P buffers
   static constexpr int LDK = HD + 4;     // K rows; keys tx + 8j: no conflicts
   static constexpr int LDB = BK + 8;     // bias / P rows; rows ty + 4i
   static constexpr int VW = HD >= 32 ? 4 : 2;  // accumulator vector width
   static constexpr int NC = HD / (8 * VW);     // vectors per row per thread
   static constexpr int RD = NC * VW;           // accumulator columns
   static constexpr size_t SMEM =
-      sizeof(float) * (BQ * HD + NSTAGE * (BK * LDK + BK * HD + BQ * LDB));
+      sizeof(float) * (BQ * HD + NSTAGE * (BK * LDK + BK * HD) +
+                       NP * BQ * LDB);
 };
 
 template <int VW> struct VecF;
@@ -129,24 +147,23 @@ template <> struct VecF<2> {
   }
 };
 
-template <int HD>
-__global__ void __launch_bounds__(128)
-gated_flash_kernel_f32(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v,
-                       const float* __restrict__ bias,
-                       const float* __restrict__ gate,
-                       float* __restrict__ out, Strides sq, Strides sk,
-                       Strides sv, Strides so, long long bias_h,
-                       long long bias_t, int T_len, float scale) {
-  typedef F32Tiles<HD> C;
+// The float32 kernels' body. BIASED = false is plain attention (no bias,
+// no gate: whisper's); its P tile has one buffer, and the loads and adds of
+// the bias and the gate are compiled out.
+template <int HD, int NW, bool BIASED>
+__device__ __forceinline__ void f32_attention(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ bias,
+    const float* __restrict__ gate, float* __restrict__ out, Strides sq,
+    Strides sk, Strides sv, Strides so, long long bias_h, long long bias_t,
+    int T_len, float scale, float* smem) {
+  typedef F32Tiles<HD, NW, BIASED> C;
   constexpr int VW = C::VW, NC = C::NC, RD = C::RD, RQ = C::RQ;
-  constexpr int NSTAGE = C::NSTAGE;
-  extern __shared__ __align__(16) float smem[];
+  constexpr int NSTAGE = C::NSTAGE, BQ = C::BQ;
   float* Qs = smem;                       // BQ x HD, scaled
   float* Ks = Qs + BQ * HD;               // NSTAGE x BK x LDK
   float* Vs = Ks + NSTAGE * BK * C::LDK;  // NSTAGE x BK x HD
-  float* Bs = Vs + NSTAGE * BK * HD;      // NSTAGE x BQ x LDB; P overwrites
+  float* Bs = Vs + NSTAGE * BK * HD;      // NP x BQ x LDB; P overwrites
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, w = tid >> 5;
@@ -156,7 +173,7 @@ gated_flash_kernel_f32(const float* __restrict__ q,
   const float* qb = q + b * sq.b + h * sq.h;
   const float* kb = k + b * sk.b + h * sk.h;
   const float* vb = v + b * sv.b + h * sv.h;
-  const float* bh = bias + h * bias_h;
+  const float* bh = BIASED ? bias + h * bias_h : nullptr;
   const int n_tiles = (T_len + BK - 1) / BK;
 
   auto load_tile = [&](int t, int buf) {
@@ -171,12 +188,13 @@ gated_flash_kernel_f32(const float* __restrict__ q,
       cp_async16(kd + r * C::LDK + d, kb + row * sk.t + d, ok);
       cp_async16(vd + r * HD + d, vb + row * sv.t + d, ok);
     }
-    for (int c = tid; c < BQ * BK / 4; c += C::NT) {
-      const int r = c / (BK / 4), col = (c % (BK / 4)) * 4;
-      const bool ok = q0 + r < T_len && k0 + col < T_len;
-      cp_async16(bd + r * C::LDB + col,
-                 bh + (ok ? (q0 + r) * bias_t + k0 + col : 0), ok);
-    }
+    if (BIASED)
+      for (int c = tid; c < BQ * BK / 4; c += C::NT) {
+        const int r = c / (BK / 4), col = (c % (BK / 4)) * 4;
+        const bool ok = q0 + r < T_len && k0 + col < T_len;
+        cp_async16(bd + r * C::LDB + col,
+                   bh + (ok ? (q0 + r) * bias_t + k0 + col : 0), ok);
+      }
   };
 
   for (int st = 0; st < NSTAGE - 1; ++st) {
@@ -201,7 +219,7 @@ gated_flash_kernel_f32(const float* __restrict__ q,
   for (int i = 0; i < RQ; ++i) {
     const int row = q0 + rw + 4 * i;
     g[i] = 1.f;
-    if (gate != nullptr && row < T_len)
+    if (BIASED && gate != nullptr && row < T_len)
       g[i] = gate[((long long)b * H + h) * T_len + row];
     m[i] = NEG;
     l[i] = 0.f;
@@ -219,7 +237,7 @@ gated_flash_kernel_f32(const float* __restrict__ q,
     if (active) {
       const float* Kt = Ks + buf * BK * C::LDK;
       const float* Vt = Vs + buf * BK * HD;
-      float* Bt = Bs + buf * BQ * C::LDB;
+      float* Bt = Bs + (BIASED ? buf : 0) * BQ * C::LDB;
       const int k0 = t * BK;
 
       float s[RQ][4];
@@ -251,10 +269,12 @@ gated_flash_kernel_f32(const float* __restrict__ q,
         float mx = NEG;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          if (k0 + tx + 8 * j < T_len)
-            s[i][j] = __fadd_rn(s[i][j], __fmul_rn(g[i], brow[tx + 8 * j]));
-          else
+          if (k0 + tx + 8 * j < T_len) {
+            if (BIASED)
+              s[i][j] = __fadd_rn(s[i][j], __fmul_rn(g[i], brow[tx + 8 * j]));
+          } else {
             s[i][j] = NEG;
+          }
           mx = fmaxf(mx, s[i][j]);
         }
 #pragma unroll
@@ -317,6 +337,34 @@ gated_flash_kernel_f32(const float* __restrict__ q,
       }
     }
   }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(128)
+gated_flash_kernel_f32(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const float* __restrict__ bias,
+                       const float* __restrict__ gate,
+                       float* __restrict__ out, Strides sq, Strides sk,
+                       Strides sv, Strides so, long long bias_h,
+                       long long bias_t, int T_len, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  f32_attention<HD, 4, true>(q, k, v, bias, gate, out, sq, sk, sv, so,
+                             bias_h, bias_t, T_len, scale, smem);
+}
+
+// Plain attention, softmax(q k^T scale) v, for whisper's encoder.
+template <int HD, int NW>
+__global__ void __launch_bounds__(32 * NW)
+nobias_flash_kernel_f32(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        float* __restrict__ out, Strides sq, Strides sk,
+                        Strides sv, Strides so, int T_len, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  f32_attention<HD, NW, false>(q, k, v, nullptr, nullptr, out, sq, sk, sv,
+                               so, 0, 0, T_len, scale, smem);
 }
 
 // ---- bfloat16: mma.sync on the tensor cores ------------------------------
@@ -616,6 +664,23 @@ cudaError_t launch_f32(const Args& a) {
   return cudaGetLastError();
 }
 
+constexpr int NOBIAS_WARPS = 8;
+
+template <int HD>
+cudaError_t launch_nobias(const Args& a) {
+  static bool done[MAX_DEVICES] = {};
+  auto kernel = nobias_flash_kernel_f32<HD, NOBIAS_WARPS>;
+  typedef F32Tiles<HD, NOBIAS_WARPS, false> C;
+  cudaError_t err = configure(kernel, C::SMEM, done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.T_len + C::BQ - 1) / C::BQ, a.H, a.B);
+  kernel<<<grid, C::NT, C::SMEM, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.out), a.sq, a.sk,
+      a.sv, a.so, a.T_len, a.scale);
+  return cudaGetLastError();
+}
+
 template <int HD>
 cudaError_t launch_bf16(const Args& a) {
   static bool done[MAX_DEVICES] = {};
@@ -637,9 +702,10 @@ cudaError_t launch_bf16(const Args& a) {
 // q, k, v: (B, H, T, hd) views with a contiguous hd axis, element type
 // `dtype` (0 = float32, 1 = bfloat16), rows and base 16-byte aligned;
 // bias: (H, T, T) with a contiguous last axis, row stride bias_t and head
-// stride bias_h (elements) 16-byte aligned; gate: contiguous (B, H, T) or
-// null; out: a float32 (B, H, T, hd) view with a contiguous hd axis and
-// 16-byte aligned rows. The (b, h, t) element strides of q, k, v and out
+// stride bias_h (elements) 16-byte aligned, or null with a null gate and
+// float32 (plain attention, the bias-free instantiation); gate: contiguous
+// (B, H, T) or null; out: a float32 (B, H, T, hd) view with a contiguous
+// hd axis and 16-byte aligned rows. The (b, h, t) element strides of q, k, v and out
 // follow. Returns the cudaError_t of the launch (0 on success).
 extern "C" int qpg_gated_flash_attention_cuda(
     const void* q, const void* k, const void* v, const void* bias,
@@ -651,7 +717,14 @@ extern "C" int qpg_gated_flash_attention_cuda(
   const Args a{q, k, v, bias, gate, out, {qb, qh, qt}, {kb, kh, kt},
                {vb, vh, vt}, {ob, oh, ot}, bias_h, bias_t, B, H, T_len,
                scale, static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) {
+  if (dtype == 0 && bias == nullptr) {
+    if (gate != nullptr) return cudaErrorInvalidValue;
+    switch (hd) {
+      case 16: return launch_nobias<16>(a);
+      case 32: return launch_nobias<32>(a);
+      case 64: return launch_nobias<64>(a);
+    }
+  } else if (dtype == 0) {
     switch (hd) {
       case 16: return launch_f32<16>(a);
       case 32: return launch_f32<32>(a);

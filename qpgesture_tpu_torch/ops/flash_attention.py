@@ -2,6 +2,9 @@
 
     softmax(q @ k^T * sm_scale + gate * bias) @ v
 
+and, with ``bias=None`` (no gate then), Whisper's plain softmax(q @ k^T *
+sm_scale) @ v.
+
 This is the plain PyTorch counterpart of the TPU kernel
 ``qpgesture_tpu/ops/flash_attention.py :: gated_flash_attention`` and of
 the CUDA kernel ``csrc/flash_attention.cu`` (wrapper:
@@ -32,14 +35,19 @@ KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 bias: torch.Tensor, gate: Optional[torch.Tensor]) -> None:
+                 bias: Optional[torch.Tensor],
+                 gate: Optional[torch.Tensor]) -> None:
     """Raise on shapes or devices the function does not take."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must share one (B, H, T, hd) shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     B, H, T, _ = q.shape
-    if tuple(bias.shape) != (H, T, T):
+    if bias is None:
+        if gate is not None:
+            raise ValueError("a gate scales the bias: without a bias there "
+                             "is nothing to gate")
+    elif tuple(bias.shape) != (H, T, T):
         raise ValueError(f"bias must be (H, T, T) = {(H, T, T)}, got "
                          f"{tuple(bias.shape)}")
     if gate is not None and tuple(gate.shape) != (B, H, T):
@@ -60,25 +68,25 @@ def resolve_kernel_dtype(q: torch.Tensor,
 
 
 def gated_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          bias: torch.Tensor,
+                          bias: Optional[torch.Tensor],
                           gate: Optional[torch.Tensor] = None, *,
                           sm_scale: float = 1.0,
                           kernel_dtype: Optional[torch.dtype] = None
                           ) -> torch.Tensor:
-    """q, k, v (B, H, T, hd); bias (H, T, T) shared across the batch; gate
-    (B, H, T) or None. Returns (B, H, T, hd) float32."""
+    """q, k, v (B, H, T, hd); bias (H, T, T) shared across the batch, or
+    None; gate (B, H, T) or None. Returns (B, H, T, hd) float32."""
     check_inputs(q, k, v, bias, gate)
     kd = resolve_kernel_dtype(q, kernel_dtype)
-    q, k, v, bias = (x.to(kd) for x in (q, k, v, bias))
+    q, k, v = (x.to(kd) for x in (q, k, v))
     if sm_scale != 1.0:
         # a 0-d host tensor: the scale rounded to kd, with no host-to-device
         # copy (which would synchronise the stream)
         q = q * torch.tensor(sm_scale, dtype=kd)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2))  # (B, H, T, T)
     if gate is not None:
-        s = s + gate.to(kd).float()[..., None] * bias.float()[None]
-    else:
-        s = s + bias.float()[None]
+        s = s + gate.to(kd).float()[..., None] * bias.to(kd).float()[None]
+    elif bias is not None:
+        s = s + bias.to(kd).float()[None]
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)

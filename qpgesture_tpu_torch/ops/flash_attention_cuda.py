@@ -1,4 +1,5 @@
-"""CUDA kernel for attention with WavLM's gated relative position bias.
+"""CUDA kernel for attention with WavLM's gated relative position bias,
+and without a bias for Whisper.
 
 Replaces the TPU kernel ``qpgesture_tpu/ops/flash_attention.py ::
 gated_flash_attention``. The kernel source is ``csrc/flash_attention.cu``
@@ -9,7 +10,10 @@ and bound with ctypes.
 
 ``gated_flash_attention`` is the wrapper: for CPU tensors it runs the plain
 PyTorch version (``gated_attention_plain``); for CUDA tensors it launches
-the kernel or raises. ``launches`` counts kernel launches.
+the kernel or raises. ``launches`` counts kernel launches. With ``bias=None``
+(and no gate) it launches the bias-free float32 instantiation
+(``nobias_flash_kernel_f32``), which reads no (H, T, T) bias at all;
+``nobias_launches`` counts those among ``launches``.
 
 Unlike the TPU wrapper, this one pads nothing: the kernel masks the ragged
 T edge itself, and q, k, v may be strided (B, H, T, hd) views with a
@@ -40,6 +44,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ALIGN = 16         # bytes: the kernel's cp.async granule
 
 launches = 0
+nobias_launches = 0
 _fn = None
 _scales: Dict[Tuple[float, torch.dtype], float] = {}
 
@@ -106,7 +111,7 @@ def prepare_bias(bias: torch.Tensor,
 
 
 def gated_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          bias: torch.Tensor,
+                          bias: Optional[torch.Tensor],
                           gate: Optional[torch.Tensor] = None, *,
                           sm_scale: float = 1.0,
                           kernel_dtype: Optional[torch.dtype] = None
@@ -114,14 +119,15 @@ def gated_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q @ k^T * sm_scale + gate * bias) @ v.
 
     q, k, v : (B, H, T, hd)
-    bias    : (H, T, T), shared across the batch
+    bias    : (H, T, T), shared across the batch, or None (no bias: plain
+        attention, float32 only on the card)
     gate    : (B, H, T) per-query bias gate, or None (plain additive bias)
     kernel_dtype : float32 or bfloat16, the type q, k, v, bias and gate are
         cast to (None keeps q's); the softmax statistics and the
         accumulator stay float32.
     Returns (B, H, T, hd) float32.
     """
-    global launches
+    global launches, nobias_launches
     check_inputs(q, k, v, bias, gate)
     if q.device.type == "cpu":
         return gated_attention_plain(q, k, v, bias, gate, sm_scale=sm_scale,
@@ -136,8 +142,12 @@ def gated_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B >= 2 ** 16 or H >= 2 ** 16:
         raise ValueError(f"B={B}, H={H} exceed the kernel's grid")
 
+    if bias is None and kd != torch.float32:
+        raise ValueError("the bias-free kernel is float32 only, got "
+                         f"{kd}")
     q, k, v = _prep(q, kd), _prep(k, kd), _prep(v, kd)
-    bias = prepare_bias(bias, kd)
+    if bias is not None:
+        bias = prepare_bias(bias, kd)
     if gate is not None and (gate.dtype != kd or not gate.is_contiguous()):
         gate = gate.to(kd).contiguous()
     out = torch.empty((B, T, H, hd), dtype=torch.float32,
@@ -145,10 +155,12 @@ def gated_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B == 0 or T == 0:
         return out
     fn = _load()
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if bias is None else bias.data_ptr(),
             None if gate is None else gate.data_ptr(), out.data_ptr(),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], bias.stride(0), bias.stride(1),
+            *out.stride()[:3], *(bias.stride()[:2] if bias is not None
+                                 else (0, 0)),
             B, H, T, hd, _DTYPE_CODES[kd], _rounded_scale(sm_scale, kd))
     if q.device.index == torch.cuda.current_device():
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
@@ -159,4 +171,6 @@ def gated_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"gated flash attention kernel launch failed "
                            f"(cudaError {err})")
     launches += 1
+    if bias is None:
+        nobias_launches += 1
     return out

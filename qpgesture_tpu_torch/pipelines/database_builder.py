@@ -37,6 +37,7 @@ from ..device import DeviceLike
 from ..motion.bvh import BVHData
 from ..motion.pipeline import MotionPipeline
 from ..motion.rotations import poses_to_matrices
+from ..ops.logmel import N_SAMPLES
 from ..ops.mfcc import MFCCConfig, sphinx_mfcc_np
 from .audio_host import cal_volume, get_energy, interp_to_fps
 from .pitch_world import get_pitch_world
@@ -183,6 +184,29 @@ def extract_wavlm(model: nn.Module, wavs: np.ndarray,
     """Step 3: WavLM features per window, (n, 199, D) float32 for 4 s
     windows."""
     return _extract(model, wavs, batch)
+
+
+def extract_utterances(model: nn.Module, wavs: np.ndarray,
+                       recordings: Optional[Sequence[str]] = None
+                       ) -> np.ndarray:
+    """Features of consecutive windows from an encoder that takes
+    utterances (Whisper): the windows in runs of as many as one utterance
+    holds (7 of 4 s in 30 s), each run one utterance; (n, 200, D) float32
+    for 4 s windows. ``recordings`` names each window's recording (a
+    bundle's ``aux[:, 0]``): a run then never crosses from one recording to
+    the next, so a database's windows are encoded as a query's are. None:
+    all windows are one recording."""
+    per = N_SAMPLES // wavs.shape[1]
+    names = [None] * len(wavs) if recordings is None else list(recordings)
+    edges = [i for i in range(1, len(wavs)) if names[i] != names[i - 1]]
+    outs = []
+    with torch.no_grad():
+        for a, b in zip([0] + edges, edges + [len(wavs)]):
+            for s in range(a, b, per):
+                x = torch.as_tensor(wavs[s:min(s + per, b)].astype(
+                    np.float32), device=model.device)
+                outs.append(model(x, clips=1).cpu().numpy())
+    return np.concatenate(outs)
 
 
 def extract_wavvq(model: nn.Module, wavs: np.ndarray,

@@ -131,7 +131,14 @@ class RawWavServer:
     feature encoder (WavLM, models/wavlm.py, or w2v-BERT,
     models/w2v_bert.py) returning features (W, 199, D) for the wavlm
     modes, or a VQWav2Vec (models/vq_wav2vec.py) returning codes (W, 398,
-    2) for the wavvq mode. Context embeddings stay a host input: they come
+    2) for the wavvq mode. Those encode every window alone. An encoder
+    that declares ``takes_utterances`` (Whisper, models/whisper.py:
+    features (W, 200, D)) encodes each clip as one utterance and is told
+    the clip layout: ``serve`` one clip of W windows, ``serve_batch`` C
+    clips of W, the streaming classes one utterance per stream window
+    (a stream has no later windows to join, so its features for a window
+    differ from those of the same window inside a served clip).
+    Context embeddings stay a host input: they come
     from the transcript (TranscriptContextStager), not the audio. Selected codes
     equal those of encoding the same windows, staging on the host and
     serving the staged queries (tests/test_torch_rawwav.py)."""
@@ -154,15 +161,20 @@ class RawWavServer:
         _check_same_device(self.engine, model=self.model,
                            encoder=self.encoder)
         self.n_steps = len(self.engine.db.geom.step_clip_idx)
+        self.utterances = getattr(self.encoder, "takes_utterances", False)
 
     @torch.no_grad()
-    def encode(self, wav: np.ndarray) -> torch.Tensor:
+    def encode(self, wav: np.ndarray, clips: int = 1) -> torch.Tensor:
         """(W, n_samples) int16 or float windows (host array or tensor) ->
         the encoder's output on the device. int16 arrives as int16 and
-        becomes wav / 32768 there."""
+        becomes wav / 32768 there. ``clips``: the windows are that many
+        clips of W / clips windows, clip-major; only an encoder that takes
+        utterances is told (Whisper refuses a clip past its 30 s)."""
         with span("encode"):
             x = to_device(wav, self.engine.device)
             x = x.float() / 32768.0 if not x.is_floating_point() else x.float()
+            if self.utterances:
+                return self.encoder(x, clips=clips)
             return self.encoder(x)
 
     def stage(self, enc: torch.Tensor,
@@ -224,8 +236,8 @@ class RawWavServer:
             if cfg.use_txt:
                 ctx = np.asarray(test_context).reshape(
                     (C * W,) + test_context.shape[2:])
-            ta, tc = self.stage(self.encode(wav.reshape((C * W,)
-                                                        + wav.shape[2:])), ctx)
+            ta, tc = self.stage(self.encode(
+                wav.reshape((C * W,) + wav.shape[2:]), clips=C), ctx)
             return _match_decode(self.engine, self.model, ta, tc, S, C,
                                  rand_bits,
                                  (reset_mask, reset_code, reset_phase),
@@ -571,7 +583,8 @@ class StreamingRawWavSession(_Streams):
         """push_wav without the download: (30,) int32 codes on the
         device."""
         ctx = context_w[None] if self.cfg.use_txt else None
-        ta, tc = self.server.stage(self.server.encode(wav_w[None]), ctx)
+        ta, tc = self.server.stage(self.server.encode(wav_w[None], clips=1),
+                                   ctx)
         return self._advance(ta, tc, self.n_steps)[0]
 
     def push_wav(self, wav_w: np.ndarray,
@@ -607,7 +620,8 @@ class StreamingRawWavPool(_Streams):
                     active: Optional[np.ndarray] = None) -> torch.Tensor:
         """tick without the download: (C, 30) int32 codes on the device."""
         ctx = context if self.cfg.use_txt else None
-        ta, tc = self.server.stage(self.server.encode(wav), ctx)
+        ta, tc = self.server.stage(
+            self.server.encode(wav, clips=wav.shape[0]), ctx)
         return self._advance(ta, tc, self.n_steps, active)
 
     def tick(self, wav: np.ndarray, context: Optional[np.ndarray] = None,

@@ -110,6 +110,166 @@ def test_flash_attention_kernel_takes_strided_views(cuda):
     assert torch.equal(a, b)
 
 
+# K2 bias-free (Whisper's plain attention) against its plain version:
+# float32 on both sides, summation order only. Whisper's shape (one
+# utterance, 20 heads, T = 1500), and T at the edges of the 32-key tiles,
+# the 16-row warps and the 128-row query blocks; (B, T, H, hd) projections
+# seen as (B, H, T, hd), as the encoder hands them.
+@pytest.mark.parametrize("B,H,T,hd", [
+    (1, 20, 1500, 64), (2, 3, 1, 64), (2, 3, 15, 64), (2, 3, 17, 64),
+    (2, 3, 31, 64), (2, 3, 32, 64), (2, 3, 33, 64), (1, 4, 127, 64),
+    (1, 4, 128, 64), (1, 4, 129, 64), (1, 20, 1408, 64), (2, 2, 200, 16),
+    (2, 2, 97, 32)])
+def test_nobias_flash_attention_kernel_matches_plain(cuda, B, H, T, hd):
+    g = torch.Generator(device=cuda).manual_seed(T)
+    q, k, v = torch.randn(3, B, T, H, hd, generator=g,
+                          device=cuda).transpose(2, 3)
+    before = (flash_attention_cuda.launches,
+              flash_attention_cuda.nobias_launches)
+    got = flash_attention_cuda.gated_flash_attention(q, k, v, None,
+                                                     sm_scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    assert (flash_attention_cuda.launches,
+            flash_attention_cuda.nobias_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    assert got.shape == (B, H, T, hd) and got.dtype == torch.float32
+    want = flash_attention_cuda.gated_attention_plain(q, k, v, None,
+                                                      sm_scale=hd ** -0.5)
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+def test_nobias_flash_attention_refuses_bfloat16_on_card(cuda):
+    q = torch.zeros(1, 2, 8, 64, device=cuda)
+    with pytest.raises(ValueError, match="float32 only"):
+        flash_attention_cuda.gated_flash_attention(
+            q, q, q, None, kernel_dtype=torch.bfloat16)
+
+
+def test_whisper_on_card_launches_nobias_k2_every_layer(cuda):
+    """Whisper-large-v3's encoder at its published widths runs K2's
+    bias-free kernel once a layer (32 launches a clip), never the gated
+    one; a 2-layer one of width 64 (head width 16) gives the CPU port's
+    features (float32 on both sides, summation order only, features of
+    unit scale). WavLM still launches the gated kernel."""
+    from qpgesture_tpu_torch.models.wavlm import WavLM, WavLMConfig
+    from qpgesture_tpu_torch.models.whisper import (WhisperConfig,
+                                                    WhisperEncoder)
+    torch.manual_seed(0)
+    wav = torch.randint(-8192, 8192, (6, 64000)).float() / 32768.0
+    model = WhisperEncoder(device=cuda)
+    before = (flash_attention_cuda.launches,
+              flash_attention_cuda.nobias_launches)
+    out = model(wav.to(cuda), clips=1)
+    torch.cuda.synchronize()
+    assert (flash_attention_cuda.launches,
+            flash_attention_cuda.nobias_launches) == (before[0] + 32,
+                                                      before[1] + 32)
+    assert out.shape == (6, 200, 1280) and bool(torch.isfinite(out).all())
+    del model, out
+    small = WhisperConfig(d_model=64, encoder_layers=2,
+                          encoder_attention_heads=4, encoder_ffn_dim=128)
+    cpu = WhisperEncoder(small, device="cpu")
+    card = WhisperEncoder(small, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    torch.testing.assert_close(card(wav.to(cuda), clips=2).cpu(),
+                               cpu(wav, clips=2), atol=1e-4, rtol=0)
+    wavlm = WavLM(WavLMConfig(encoder_layers=2), device=cuda)
+    before = (flash_attention_cuda.launches,
+              flash_attention_cuda.nobias_launches)
+    wavlm(wav[:2].to(cuda))
+    assert (flash_attention_cuda.launches,
+            flash_attention_cuda.nobias_launches) == (before[0] + 2,
+                                                      before[1])
+
+
+def test_whisper_serves_and_matches_through_the_cli_on_card(cuda, tmp_path):
+    """Whisper-large-v3's encoder at its published widths (random weights)
+    on the raw-wav path: ``serve`` of a 6-window clip and ``serve_batch`` of
+    two select the codes of host staging on the encoder's own features for
+    that clip layout; ``generate``'s matching through --whisper-checkpoint
+    (a state-dict directory) gives engine.predict's codes on the features
+    of runs of up to 7 windows, each one utterance."""
+    import argparse
+    import json
+    from qpgesture_tpu_torch import cli
+    from qpgesture_tpu_torch.core.schemas import save_codes, save_wavlm
+    from qpgesture_tpu_torch.core.config import VQVAEConfig
+    from qpgesture_tpu_torch.models.vqvae import VQVAE
+    from qpgesture_tpu_torch.models.whisper import (WhisperEncoder,
+                                                    load_whisper_checkpoint)
+    from qpgesture_tpu_torch.pipelines import database_builder
+    from qpgesture_tpu_torch.serve import RawWavServer
+    rng = np.random.RandomState(81)
+    fx = make_fixture(rng, n_seq=3, n_test=1, codebook=512)
+    feats = rng.randn(3, 200, 1280).astype(np.float32)
+    cfg = dataclasses.replace(MATCH_PRESETS["shipped"], codebook_size=512)
+    db = stage_database(cfg, fx["bundle"], fx["codes"], fx["signature"],
+                        wavlm=feats)
+    engine = CodeKNNEngine(cfg, db, device=cuda)
+    torch.manual_seed(82)
+    encoder = WhisperEncoder(device=cuda)
+    server = RawWavServer(engine, VQVAE(VQVAEConfig(), device=cuda), encoder)
+    wav = rng.randint(-8192, 8192, (2, 6, 64000)).astype(np.int16)
+    ctx = rng.randn(2, 6, 30, 384).astype(np.float32)
+
+    def host(x, clips, c, init_code):
+        enc = encoder(torch.as_tensor(x, device=cuda).float() / 32768.0,
+                      clips=clips)[6 * c:6 * c + 6]
+        return engine.predict(
+            stage_test_audio(cfg, db, wavlm=enc.cpu().numpy()),
+            stage_test_context(db, ctx[c]), init_code=init_code,
+            init_phase=np.zeros((8, 16), np.float32),
+            rng=np.random.RandomState(cfg.seed)).codes
+
+    before = flash_attention_cuda.nobias_launches
+    codes, poses = server.serve(wav[0], ctx[0], init_code=5,
+                                rng=np.random.RandomState(cfg.seed))
+    assert flash_attention_cuda.nobias_launches == before + 32
+    np.testing.assert_array_equal(codes, host(wav[0], 1, 0, 5))
+    assert poses.shape == (6 * 240, 135)
+    batch, _ = server.serve_batch(wav, ctx, init_codes=np.array([5, 9]),
+                                  init_phases=np.zeros((2, 8, 16),
+                                                       np.float32))
+    for c, init in enumerate((5, 9)):
+        np.testing.assert_array_equal(batch[c],
+                                      host(wav.reshape(12, -1), 2, c, init))
+    with pytest.raises(ValueError, match="30 s context"):
+        server.serve(np.zeros((8, 64000), np.int16), np.zeros((8, 30, 384),
+                                                              np.float32))
+
+    ckpt = tmp_path / "whisper"
+    ckpt.mkdir()
+    with open(ckpt / "config.json", "w") as f:
+        json.dump(dataclasses.asdict(encoder.cfg), f)
+    torch.save({f"encoder.{k}": v.cpu()
+                for k, v in encoder.state_dict().items()},
+               ckpt / "pytorch_model.bin")
+    del server, encoder
+    paths = {k: str(tmp_path / f"{k}.npz") for k in ("db", "codes", "sig",
+                                                    "feats")}
+    fx["bundle"].save(paths["db"])
+    save_codes(paths["codes"], fx["codes"])
+    fx["signature"].save(paths["sig"])
+    save_wavlm(paths["feats"], feats)
+    args = argparse.Namespace(
+        train_database=paths["db"], train_codebook=paths["codes"],
+        codebook_signature=paths["sig"], train_wavlm=paths["feats"],
+        train_wavvq=None, preset="shipped", wavvq_checkpoint=None,
+        wavlm_checkpoint=None, w2v_bert_checkpoint=None,
+        whisper_checkpoint=str(ckpt), device="cuda")
+    audio = (rng.randn(16000 * 33) * 0.1).astype(np.float32)
+    got, _ = cli._match_codes(args, audio)
+    windows = database_builder.window_test_audio(audio)
+    loaded = load_whisper_checkpoint(str(ckpt), device=cuda)
+    want = CodeKNNEngine(cfg, db, device=cuda).predict(
+        stage_test_audio(cfg, db, wavlm=database_builder.extract_utterances(
+            loaded, windows)),
+        stage_test_context(db, np.tile(
+            database_builder.hashed_embed_fn()([""] * 30)[None],
+            (windows.shape[0], 1, 1)).astype(np.float32))).codes
+    np.testing.assert_array_equal(got, want)
+
+
 # K4 against its plain version: float32 on both sides, summation order only
 # (the plain version forms the (T, T) logits, the kernel an online softmax
 # over 32-key tiles); (B, T, H, hd) projections seen as (B, H, T, hd), as

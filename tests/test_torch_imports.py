@@ -46,7 +46,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
               "examples.tie_divergence_sweep", "examples.scale_study",
               "examples.streaming_soak", "examples.serve_production",
               "examples.train_campaign", "examples.demo_synthetic",
-              "examples.rawwav_latency"):
+              "examples.rawwav_latency", "models.whisper", "ops.logmel"):
         assert f"qpgesture_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
