@@ -45,6 +45,37 @@ def test_rehearsal_of_each_cell(capsys, cell):
     assert all(c["value"] <= c["limit"] for c in r["checks"].values())
 
 
+@pytest.mark.parametrize("seconds", ["0.5", "2"])
+def test_setup_s_is_read_before_the_window_inputs_are_drawn(
+        capsys, monkeypatch, seconds):
+    """setup_s ends with the warm-up: none of the window's units (index 0
+    and up; warm-up units have negative ones) is drawn before it is read,
+    so it does not grow with planned; draw_s holds what the draw cost."""
+    drawn, at_setup = [], []
+    draw = harness.bdata.unit
+
+    def logged(traffic, entry, cfg, seed, index):
+        if index >= 0:
+            drawn.append(index)
+        return draw(traffic, entry, cfg, seed, index)
+
+    age = harness.process_age_s
+
+    def recorded():
+        at_setup.append(len(drawn))
+        return age()
+
+    monkeypatch.setattr(harness.bdata, "unit", logged)
+    monkeypatch.setattr(harness, "process_age_s", recorded)
+    rc, r = _run(capsys, "--workload", "vq-wav2vec-j16384.clip", "--seed",
+                 str(2 ** 31 + 77), "--seconds", seconds, "--trace", "0",
+                 "--rehearse")
+    assert rc == 0 and r["correct"]
+    assert at_setup == [0]
+    assert len(drawn) >= r["attempted"]
+    assert r["window"]["draw_s"] >= 0
+
+
 def test_traced_rehearsal_measures_nothing(capsys):
     rc, r = _run(capsys, "--workload", "wavlm-large-j1024.clip", "--seed",
                  "11", "--seconds", "1", "--trace", "1", "--rehearse")
