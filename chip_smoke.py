@@ -52,6 +52,19 @@ but 6 scans on the card, so each must launch K3, the fusion scan kernel
                encoder at its published widths (each 24 s clip one 30 s
                utterance, the bias-free K2 once a layer), codes against host
                staging, features against the benchmark's plain reference;
+  phase 6f     K7 (the per-code candidate reduction) against its plain
+               version, bit for bit: ties, negative distances and both
+               zeros, codes that never occur, ragged N, and every cell's
+               shapes, k = 512 codes: the vq-wav2vec clip's and batch's Q
+               = 48 and 768 queries against N = 425 984 positions in
+               float32 and int32, the J = 1024 clip's and tick's Q = 48 and
+               128 against N = 26 624 in float32; K7 / plain times there
+               beside the bound of reading the matrix and the codes once
+               at 3.35 TB/s; every later phase that builds tables on the
+               card must launch K7 (phase 4: two calls a request, and the
+               tables span's segmin_kernel counter reads 2), and only
+               those launches, timing and check loops left out
+               (``uncounted``), reach the kernels line;
   phase 7      raw-wav serving of the shipped preset at full WavLM-Large
                width (24 layers, random weights), 3 requests of 6 int16
                windows, against host-staged serving, the eager attention
@@ -181,6 +194,7 @@ Imports nothing of JAX: the card's machine runs the port alone.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -251,6 +265,13 @@ SIGNATURE_ATOL = 1e-3
 # a VQ code may differ from the CPU's only between candidates whose squared
 # distances differ by float32 rounding, relative to the terms summed
 CODE_GAP_RTOL = 1e-6
+# phase 6f: K7 at each cell's (label, queries Q, positions N, distance
+# types): the vq-wav2vec cells' audio side reads K1's int32 matrix and their
+# text side float32; the J = 1024 cells' sides are both cosine
+K7_SHAPES = (("vq batch", 768, 425984, ("float32", "int32")),
+             ("vq clip", 48, 425984, ("float32", "int32")),
+             ("j1024 clip", 48, 26624, ("float32",)),
+             ("j1024 tick", 128, 26624, ("float32",)))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS = 67e12           # float32 outside the tensor cores (TF32 off)
 BF16_TC_FLOPS = 989e12      # bfloat16 tensor cores, dense
@@ -418,6 +439,19 @@ def device_ms(fn, n: int, reps: int = 5, warmup: int = 3) -> float:
             continue
         times.append(start.elapsed_time(end) / n)
     return statistics.median(times)
+
+
+@contextlib.contextmanager
+def uncounted():
+    """A timing or check loop: K7's launches inside the block are taken off
+    its counter again, so that only the main path's reach the kernels
+    line."""
+    from qpgesture_tpu_torch.ops import segmin_cuda as K7
+    before = K7.launches
+    try:
+        yield
+    finally:
+        K7.launches = before
 
 
 def log_profile(phase: str, fn) -> dict:
@@ -900,6 +934,81 @@ def phase_k5(dev) -> dict:
         del layers, calls
         torch.cuda.empty_cache()
     return dict(max_abs_err=max_err, **out["clip"], batch=out["batch"])
+
+
+def phase_k7(dev) -> dict:
+    """K7 (the per-code candidate reduction) against its plain version,
+    bit for bit (mins as int32 bits, args, matched) on small adversarial
+    cases and at every cell's shapes (K7_SHAPES), k = 512 codes; then the
+    device ms of one call of each (CUDA events around calls queued behind
+    a spin), beside the plain version's (scatter_reduce, gather, where,
+    scatter_reduce: the only PyTorch route, so it is also the library
+    yardstick) and the bound of reading the (Q, N) matrix and the N int64
+    codes once at 3.35 TB/s. Returns the kernels-line fields (the vq
+    batch's float32 at the top level, the rest under "times")."""
+    import torch
+    from qpgesture_tpu_torch.ops import segmin_cuda as K7
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    k, unmatched = 512, 1000.0
+
+    def check(name, dist, seg, kk):
+        got = K7.segment_min_argmin(dist, seg, kk, unmatched)
+        torch.cuda.synchronize()
+        want = K7.segment_min_argmin_plain(dist.cpu(), seg.cpu(), kk,
+                                           unmatched)
+        same = (torch.equal(got[2].cpu(), want[2])
+                and torch.equal(got[1].cpu(), want[1])
+                and torch.equal(got[0].cpu().view(torch.int32),
+                                want[0].view(torch.int32)))
+        again = K7.segment_min_argmin(dist, seg, kk, unmatched)
+        twice = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"phase 6f K7 {name}: Q={dist.shape[0]} N={dist.shape[1]} "
+            f"k={kk} {str(dist.dtype)[6:]} bit-equal={same} "
+            f"same bits twice={twice}")
+        if not (same and twice):
+            raise SystemExit(f"K7 disagrees with its plain version: {name}")
+
+    def dist_of(Q, n, dtype):
+        if dtype == torch.int32:
+            return torch.randint(0, 23, (Q, n), generator=gen, device=dev,
+                                 dtype=torch.int32)
+        return 1.0 - torch.rand(Q, n, generator=gen, device=dev) * 1.0001
+
+    small = torch.tensor([-0.0, 0.0, -1e-7, 1e-7, 0.5, 2.0], device=dev)
+    ties = small[torch.randint(0, 6, (6, 3 * 2048 + 13), generator=gen,
+                               device=dev)]
+    check("ties, negatives and both zeros, ragged N", ties,
+          torch.randint(0, 16, (ties.shape[1],), generator=gen, device=dev),
+          16)
+    seg_gaps = torch.randint(0, 256, (4099,), generator=gen, device=dev) * 2
+    check("odd codes never occur", dist_of(5, 4099, torch.float32),
+          seg_gaps, 512)
+    times = {}
+    for label, Q, N, dtypes in K7_SHAPES:
+        seg = torch.randint(0, k, (N,), generator=gen, device=dev)
+        for dtype in (getattr(torch, t) for t in dtypes):
+            dist = dist_of(Q, N, dtype)
+            name = f"{label} {str(dtype)[6:]}"
+            check(name, dist, seg, k)
+            with torch.no_grad():
+                ms = device_ms(lambda: K7.segment_min_argmin(
+                    dist, seg, k, unmatched), 20)
+                plain_ms = device_ms(lambda: K7.segment_min_argmin_plain(
+                    dist, seg, k, unmatched), 2, reps=3, warmup=1)
+            bound_ms = 1e3 * (4.0 * Q * N + 8.0 * N) / HBM_BYTES_PER_S
+            splits, chunk = K7.plan(Q, N, *K7._resident(
+                dist.device, k, int(dtype == torch.int32)))
+            log(f"phase 6f K7 times {name}: Q={Q} N={N} kernel_ms={ms:.5f} "
+                f"plain_ms={plain_ms:.5f} (also the library route) "
+                f"bound_ms={bound_ms:.5f} (bytes: the (Q, N) matrix at 4 B "
+                f"and N codes at 8 B) share={100 * bound_ms / ms:.1f} % "
+                f"grid={splits} x {-(-Q // K7.ROWS)} chunk={chunk}")
+            times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by="bytes", library_ms=plain_ms)
+            del dist
+            torch.cuda.empty_cache()
+    return dict(**times["vq batch float32"], times=times)
 
 
 def phase_k6(dev) -> dict:
@@ -2560,7 +2669,9 @@ def phase16_tables(dev, shipped, vqvae_gpu, data_mean, data_std):
     rows = torch.arange(512, device=dev) * (flat.shape[0] // 512)
 
     def tables_ms(cfg, devdb, ta, tc):
-        return median_ms(lambda: eng._tables_impl(cfg, devdb, ta, tc), 10)
+        with uncounted():
+            return median_ms(lambda: eng._tables_impl(cfg, devdb, ta, tc),
+                             10)
 
     def cosine_ms(q, feat):
         """(device ms of the audio cosine products alone, their bound: the
@@ -2671,9 +2782,11 @@ def phase16_tables(dev, shipped, vqvae_gpu, data_mean, data_std):
             if same[r].all():
                 continue
             ta, tc = staged[r]
-            t_ref = eng._tables_impl(base.cfg, base.devdb, ta, tc)
-            t_new = eng._tables_impl(cfg, engine.devdb, ta, tc)
-            d_ref = eng._raw_tables_impl(base.cfg, base.devdb, ta, tc)[0][0]
+            with uncounted():
+                t_ref = eng._tables_impl(base.cfg, base.devdb, ta, tc)
+                t_new = eng._tables_impl(cfg, engine.devdb, ta, tc)
+                d_ref = eng._raw_tables_impl(base.cfg, base.devdb, ta,
+                                             tc)[0][0]
             gaps = []
             for qi in range(ta.shape[0] * ta.shape[1]):
                 gaps += _flip_gaps(d_ref[qi].cpu().numpy(),
@@ -2685,12 +2798,13 @@ def phase16_tables(dev, shipped, vqvae_gpu, data_mean, data_std):
                 f"of the flipped candidates max {max(gaps, default=0):.3e}")
         if name == "shipped_fast":
             fast = (cfg, engine)
-            log_profile("phase 16 \"highest\" tables at Q=48", lambda: (
-                eng._tables_impl(base.cfg, base.devdb, *staged[0]),
-                torch.cuda.synchronize()))
-            log_profile("phase 16 \"high\" tables at Q=48", lambda: (
-                eng._tables_impl(cfg, engine.devdb, *staged[0]),
-                torch.cuda.synchronize()))
+            with uncounted():
+                log_profile("phase 16 \"highest\" tables at Q=48", lambda: (
+                    eng._tables_impl(base.cfg, base.devdb, *staged[0]),
+                    torch.cuda.synchronize()))
+                log_profile("phase 16 \"high\" tables at Q=48", lambda: (
+                    eng._tables_impl(cfg, engine.devdb, *staged[0]),
+                    torch.cuda.synchronize()))
         else:
             del engine, server
 
@@ -2756,16 +2870,18 @@ def phase16_reference_ties(dev, serving, reference, requests, bundle, codes,
     ta, tc = requests[0]
     W_, S = ta.shape[:2]
     qa, qc = card.stage_queries(ta, tc)
-    raw = [[t.cpu().numpy() for t in side]
-           for side in eng._raw_tables_impl(cfg, card.devdb, qa, qc)]
+    with uncounted():
+        raw = [[t.cpu().numpy() for t in side]
+               for side in eng._raw_tables_impl(cfg, card.devdb, qa, qc)]
     aud = card._host_tables("aud", *raw[0], W_, S)
     txt = card._host_tables("txt", *raw[1], W_, S)
     oracle = CodeKNNOracle(card.db, tie_kind="reference")
     t0 = time.perf_counter()
     oracle.predict_with_tables(aud, txt, rng=np.random.RandomState(cfg.seed))
     fusion_ms = 1e3 * (time.perf_counter() - t0)
-    call_ms = median_ms(lambda: card.predict_reference_ties(
-        ta, tc, rng=np.random.RandomState(cfg.seed)), 3, warmup=0)
+    with uncounted():
+        call_ms = median_ms(lambda: card.predict_reference_ties(
+            ta, tc, rng=np.random.RandomState(cfg.seed)), 3, warmup=0)
 
     sub = 8
     db_s = stage_database(cfg, _take_bundle(bundle, sub), codes[:sub],
@@ -5141,8 +5257,9 @@ def phase20_rank(tmp: str, device: str, train: bool):
     stages its shard from the memory-mapped files), with per-rank tables
     and combine times, request times and resident bytes (the shipped
     engine's construction and its shard); with ``train``, one data-parallel
-    step of each trainer. Returns the results, K1's, K2's and K3's
-    launches in this process and the times."""
+    step of each trainer. Returns the results, K1's, K2's, K3's and K7's
+    launches in this process (K7's without the timing loops) and the
+    times."""
     import pickle
     import numpy as np
     import torch
@@ -5153,6 +5270,7 @@ def phase20_rank(tmp: str, device: str, train: bool):
     from qpgesture_tpu_torch.ops import flash_attention_cuda as K2
     from qpgesture_tpu_torch.ops import fusion_scan_cuda as K3
     from qpgesture_tpu_torch.ops import levenshtein_cuda as K1
+    from qpgesture_tpu_torch.ops import segmin_cuda as K7
     from qpgesture_tpu_torch.parallel import dist as pd
     from qpgesture_tpu_torch.parallel.sharded_match import (combine_minargs,
                                                             shard_minargs)
@@ -5170,7 +5288,7 @@ def phase20_rank(tmp: str, device: str, train: bool):
     engine = lambda cfg, name: CodeKNNEngine(  # noqa: E731
         cfg, load_db(os.path.join(tmp, name)), device=dev)
     eng_w = engine(cfg_w, "db_wavvq")
-    K1.launches = K2.launches = K3.launches = 0
+    K1.launches = K2.launches = K3.launches = K7.launches = 0
     out = {"rank": r}
     held = []
 
@@ -5193,13 +5311,15 @@ def phase20_rank(tmp: str, device: str, train: bool):
                                                    rng=rs())))
     out["batch"] = [oracle_tuple(x) for x in eng_w.predict_batch_sharded(
         None, *inp["batch"], rng=rs())]
-    for name, eng, ta in (("wavvq", eng_w, ta_w), ("shipped", eng_s, ta_s)):
-        qa, qc = eng.stage_queries(ta, tc_w)
-        out[f"tables_ms {name}"] = median_ms(
-            lambda: eng.tables(qa, qc, sharded=True), 5)
-    side = eng_s.sharded_db(None).aud
-    mins, args = shard_minargs(cfg_s, torch.as_tensor(ta_s).to(dev).reshape(
-        -1, ta_s.shape[-1]), side, False)
+    with uncounted():
+        for name, eng, ta in (("wavvq", eng_w, ta_w),
+                              ("shipped", eng_s, ta_s)):
+            qa, qc = eng.stage_queries(ta, tc_w)
+            out[f"tables_ms {name}"] = median_ms(
+                lambda: eng.tables(qa, qc, sharded=True), 5)
+        side = eng_s.sharded_db(None).aud
+        mins, args = shard_minargs(cfg_s, torch.as_tensor(ta_s).to(
+            dev).reshape(-1, ta_s.shape[-1]), side, False)
     out["combine_ms"] = median_ms(lambda: combine_minargs(cfg_s, mins, args),
                                   10)
     with torch.device(dev):     # initialised on the card, then overwritten
@@ -5224,6 +5344,7 @@ def phase20_rank(tmp: str, device: str, train: bool):
     log(f"{prefix}: holds the shipped engine's DeviceDatabase "
         f"{out['engine'] / 1e6:.3f} MB")
     out["k1"], out["k2"], out["k3"] = K1.launches, K2.launches, K3.launches
+    out["k7"] = K7.launches
     if r == 0:
         host = ": CUDA tensors through host copies" \
             if backend == "gloo" else ""
@@ -5235,7 +5356,7 @@ def phase20_rank(tmp: str, device: str, train: bool):
             f"); request ms predict wavvq {out['ms predict wavvq']:.3f}, "
             f"shipped {out['ms predict shipped']:.3f}, serve_sharded "
             f"{out['ms serve']:.3f}; launches K1 {out['k1']}, K2 "
-            f"{out['k2']}")
+            f"{out['k2']}, K7 {out['k7']}")
     del server, enc, vq
     if train:
         out["train"] = phase20_train_rank(dev, inp["train"], tmp, prefix)
@@ -5351,7 +5472,7 @@ def phase20(dev, rng, tmp: str, vq_cpu, data_mean, data_std) -> tuple:
     process groups on the one card (world 1 under NCCL; 2 and 4 gloo ranks
     sharing cuda:0), each rank held against the single device; match
     --sharded and train-vqvae under torch.distributed.run. Returns K1's,
-    K2's and K3's launches (in the groups' ranks)."""
+    K2's, K3's and K7's launches (in the groups' ranks)."""
     import pickle
     import numpy as np
     import torch
@@ -5408,7 +5529,7 @@ def phase20(dev, rng, tmp: str, vq_cpu, data_mean, data_std) -> tuple:
     # the card every rank of every group runs on
     rank_dev = str(torch.device("cuda", torch.cuda.current_device())) \
         if dev.type == "cuda" else str(dev)
-    k1 = k2 = k3 = 0
+    k1 = k2 = k3 = k7 = 0
     for world, backend in P20_GROUPS:
         t1 = time.time()
         ranks = spawn(phase20_rank, world, (tmp, rank_dev, world == 2),
@@ -5417,6 +5538,7 @@ def phase20(dev, rng, tmp: str, vq_cpu, data_mean, data_std) -> tuple:
                              train_ref if world == 2 else None)
         k1, k2 = k1 + a, k2 + b
         k3 += sum(o["k3"] for o in ranks)
+        k7 += sum(o["k7"] for o in ranks)
         log(f"phase 20 [{world} {backend}] group: {time.time() - t1:.1f} s "
             f"wall (processes, staging, checks)")
 
@@ -5463,7 +5585,7 @@ def phase20(dev, rng, tmp: str, vq_cpu, data_mean, data_std) -> tuple:
         f"{P20_CLI_WINDOWS} windows (batch {TRAIN_BATCH}) -> rank 0's "
         f"best.pt decoded to BVH {bvh.values.shape}; {time.time() - t0:.1f}"
         f" s wall (the three launches at once)")
-    return k1, k2, k3
+    return k1, k2, k3, k7
 
 
 # Phase 21's budget (QPG_BENCH_BUDGET_S): room for every section, so that a
@@ -5517,12 +5639,13 @@ def phase21_bench(kind: str) -> tuple:
     its keys, no skipped / pending / error, finite numbers and the card's
     name; its wavvq request's codes must equal the CPU port's predict on
     the same staged data. Returns (compact line, K1 launches, K2
-    launches)."""
+    launches, K7 launches)."""
     import numpy as np
     from qpgesture_tpu_torch import bench
     from qpgesture_tpu_torch.core.constants import POSE_DIM
     from qpgesture_tpu_torch.ops import flash_attention_cuda as K2
     from qpgesture_tpu_torch.ops import levenshtein_cuda as K1
+    from qpgesture_tpu_torch.ops import segmin_cuda as K7
 
     saved = {k: os.environ.get(k) for k in ("QPG_BENCH_BUDGET_S",
                                             "QPG_BENCH_RAWWAV_MODES")}
@@ -5530,11 +5653,11 @@ def phase21_bench(kind: str) -> tuple:
     os.environ.pop("QPG_BENCH_RAWWAV_MODES", None)
     try:
         with tempfile.TemporaryDirectory() as tmp:
-            K1.launches = K2.launches = 0
+            K1.launches = K2.launches = K7.launches = 0
             t0 = time.time()
             full = bench.main(["--full-out",
                                os.path.join(tmp, "bench_torch_full.json")])
-            k1, k2 = K1.launches, K2.launches
+            k1, k2, k7 = K1.launches, K2.launches, K7.launches
             bench_s = time.time() - t0
     finally:
         for k, v in saved.items():
@@ -5563,8 +5686,9 @@ def phase21_bench(kind: str) -> tuple:
         faults.append(f"numbers not finite or negative: {bad}")
     if faults:
         raise SystemExit(f"phase 21 bench: {faults}\n{line}")
-    if not (k1 and k2):
-        raise SystemExit(f"phase 21 launched K1 {k1}, K2 {k2} times")
+    if not (k1 and k2 and k7):
+        raise SystemExit(f"phase 21 launched K1 {k1}, K2 {k2}, K7 {k7} "
+                         f"times")
 
     # the wavvq request's codes against the CPU port on the same data: the
     # bench's draws in order (the database, the decoder's codebook windows,
@@ -5584,8 +5708,8 @@ def phase21_bench(kind: str) -> tuple:
                          f"{want.size}")
     log(f"phase 21 bench: {bench_s:.1f} s in bench.main, every section "
         f"with its keys; wavvq codes == CPU port ({want.shape}); launches "
-        f"K1 {k1}, K2 {k2}")
-    return line, k1, k2
+        f"K1 {k1}, K2 {k2}, K7 {k7}")
+    return line, k1, k2, k7
 
 
 # -- phase 22: the port's examples (qpgesture_tpu_torch/examples/) ----------
@@ -5862,12 +5986,13 @@ def phase22_examples(dev: str, smi: str) -> tuple:
     rehearsal passes "cpu", shrinks the P22_* constants, replaces
     phase22_campaign, whose CPU run tests/test_torch_examples.py makes at
     a small width, and sees no launches). Returns (K1 launches, K2
-    launches)."""
+    launches, K7 launches)."""
     from qpgesture_tpu_torch.ops import flash_attention_cuda as K2
     from qpgesture_tpu_torch.ops import levenshtein_cuda as K1
+    from qpgesture_tpu_torch.ops import segmin_cuda as K7
     import torch
     t0 = time.time()
-    K1.launches = K2.launches = 0
+    K1.launches = K2.launches = K7.launches = 0
     walls = {}
 
     def part(name, fn, *args):
@@ -5886,12 +6011,12 @@ def phase22_examples(dev: str, smi: str) -> tuple:
         part("campaign", phase22_campaign, tmp)
         part("demo", phase22_demo, dev, tmp)
     part("rawwav", phase22_rawwav, dev)
-    k1, k2 = K1.launches, K2.launches
-    log(f"phase 22 launches: K1 {k1}, K2 {k2}; walls {json.dumps(walls)}; "
-        f"{time.time() - t0:.1f} s in all")
+    k1, k2, k7 = K1.launches, K2.launches, K7.launches
+    log(f"phase 22 launches: K1 {k1}, K2 {k2}, K7 {k7}; walls "
+        f"{json.dumps(walls)}; {time.time() - t0:.1f} s in all")
     if not (k1 and k2):
         raise SystemExit(f"phase 22 launched K1 {k1}, K2 {k2} times")
-    return k1, k2
+    return k1, k2, k7
 
 
 def main() -> int:
@@ -5937,8 +6062,9 @@ def main() -> int:
     from qpgesture_tpu_torch.ops import levenshtein_cuda as K1
     from qpgesture_tpu_torch.ops import posconv_cuda as K6
     from qpgesture_tpu_torch.ops import relkey_attention_cuda as K4
+    from qpgesture_tpu_torch.ops import segmin_cuda as K7
     from qpgesture_tpu_torch.serve import ServingPipeline
-    k3_launches = k5_launches = k6_launches = 0
+    k3_launches = k5_launches = k6_launches = k7_launches = 0
 
     def k3_read(phase: str, elsewhere: int = 0) -> None:
         """Adds K3's launches since its counter was set to 0 (and those
@@ -5977,12 +6103,26 @@ def main() -> int:
                              f"positional conv kernel (K6)")
         k6_launches += n
 
+    def k7_read(phase: str, n: int = None) -> None:
+        """Adds K7's launches since its counter was set to 0, just before
+        the phase's work on the main path (timing and check loops run
+        ``uncounted``), or the n counted in other processes, to the total,
+        sets the counter to 0, and exits when that work, which builds its
+        tables on the card, ran no K7."""
+        nonlocal k7_launches
+        n, K7.launches = K7.launches if n is None else n, 0
+        log(f"{phase} K7 launches {n}")
+        if n == 0:
+            raise SystemExit(f"{phase} built its tables on the card without "
+                             f"the per-code reduction kernel (K7)")
+        k7_launches += n
+
     # -- phase 2: build, one nvcc per source, all at once -------------------
     t0 = time.time()
     cuda_build.build_all([K1.SOURCE, K2.SOURCE, K3.SOURCE, K4.SOURCE,
-                          K5.SOURCE, K6.SOURCE])
+                          K5.SOURCE, K6.SOURCE, K7.SOURCE])
     log(f"phase 2 build: {K1.SOURCE} + {K2.SOURCE} + {K3.SOURCE} + "
-        f"{K4.SOURCE} + {K5.SOURCE} + {K6.SOURCE} "
+        f"{K4.SOURCE} + {K5.SOURCE} + {K6.SOURCE} + {K7.SOURCE} "
         f"{time.time() - t0:.2f} s")
     phase_wall("phases 1-2")
 
@@ -6075,10 +6215,10 @@ def main() -> int:
     serving.serve(*requests[-1])            # warm-up request
     torch.cuda.synchronize()
 
-    K1.launches = K2.launches = K3.launches = 0
+    K1.launches = K2.launches = K3.launches = K7.launches = 0
     served, req_ms = [], []
     for r in range(N_REQUESTS):
-        before, before3 = K1.launches, K3.launches
+        before, before3, before7 = K1.launches, K3.launches, K7.launches
         t0 = time.perf_counter()
         out = serving.serve(*requests[r])   # returns host arrays: synced
         req_ms.append(1e3 * (time.perf_counter() - t0))
@@ -6087,8 +6227,24 @@ def main() -> int:
         if K3.launches != before3 + 1:
             raise SystemExit(f"request {r} launched K3 "
                              f"{K3.launches - before3} times, not once")
+        # a K7 call is two launches (the pass and the decode), one call a
+        # side
+        if K7.launches != before7 + 4:
+            raise SystemExit(f"request {r} launched K7 "
+                             f"{K7.launches - before7} times, not 4 (two "
+                             f"calls, one a side)")
         served.append(out)
     k1_launches = K1.launches
+    from qpgesture_tpu_torch.utils import profiling
+    with profiling.recording() as prof:
+        serving.serve(*requests[0])
+    counted = [rec["counters"].get("segmin_kernel")
+               for rec in prof.take() if rec["name"] == "tables"]
+    log(f"phase 4 tables spans' segmin_kernel under the recorder: {counted}")
+    if counted != [2]:
+        raise SystemExit(f"phase 4: a request's tables span counted "
+                         f"segmin_kernel {counted}, not [2]")
+    k7_read("phase 4")
 
     pose_err = 0.0
     for r, (codes_gpu, poses_gpu) in enumerate(served):
@@ -6125,7 +6281,8 @@ def main() -> int:
                                     np.zeros((W * S, 8, 16), np.float32))
 
     codes_flat = torch.as_tensor(served[0][0].reshape(1, -1), device=dev)
-    tables_ms = median_ms(tables, 10)
+    with uncounted():
+        tables_ms = median_ms(tables, 10)
     scan_ms = median_ms(scan, 5, warmup=1)
     decode_ms = median_ms(lambda: model_gpu.decode(codes_flat), 10)
     log(f"phase 4 stage times: tables_ms={tables_ms:.4f} "
@@ -6156,6 +6313,7 @@ def main() -> int:
         with open(p("pipeline.json"), "w") as f:
             f.write(pipe.to_json())
         t1 = time.time()
+        K7.launches = 0
         cli(["match", "--train-database", p("db.npz"),
              "--train-codebook", p("codes.npz"),
              "--codebook-signature", p("code.npz"),
@@ -6181,6 +6339,7 @@ def main() -> int:
             f"{bvh.values.shape} parsed back; J={J_CLI} database; files "
             f"{t1 - t0:.1f} s, commands {time.time() - t1:.2f} s")
 
+    k7_read("phase 5")
     k3_read("phase 5")
     phase_wall("phase 5")
 
@@ -6190,13 +6349,14 @@ def main() -> int:
     K3.launches = 0                 # phase 6 does not scan
 
     # -- phase 6b: K4 and raw-wav serving with w2v-BERT 2.0 ----------------
-    K4.launches = 0
+    K4.launches = K7.launches = 0
     k4_line = phase_k4(dev, np.random.RandomState(SEED + 6), bundle, codes,
                        signature, model_gpu, data_mean, data_std)
     k4_launches, K4.launches = K4.launches, 0
     log(f"phase 6b K4 launches {k4_launches}")
     if k4_launches == 0:
         raise SystemExit("phase 6b encoded with w2v-BERT without K4")
+    k7_read("phase 6b")
     k3_read("phase 6b")
     phase_wall("phase 6b")
 
@@ -6221,72 +6381,94 @@ def main() -> int:
     phase_wall("phase 6d")
 
     # -- phase 6e: bias-free K2 and raw-wav serving with Whisper ----------
+    K7.launches = 0
     nobias_line, nobias_launches = phase_nobias(
         dev, np.random.RandomState(SEED + 7), bundle, codes, signature,
         model_gpu, data_mean, data_std)
     if nobias_launches == 0:
         raise SystemExit("phase 6e encoded with Whisper without the "
                          "bias-free K2")
+    k7_read("phase 6e")
     k3_read("phase 6e")
     phase_wall("phase 6e")
 
+    # -- phase 6f: K7, the per-code candidate reduction ---------------------
+    K7.launches = 0
+    k7_line = phase_k7(dev)
+    log(f"phase 6f K7 launches {K7.launches} (checks and timings, left out "
+        f"of the kernels line's count)")
+    if K7.launches == 0:
+        raise SystemExit("phase 6f ran no K7")
+    torch.cuda.empty_cache()
+    phase_wall("phase 6f")
+
     # -- phase 7: raw-wav serving, shipped preset, WavLM-Large --------------
-    K6.launches = 0
+    K6.launches = K7.launches = 0
     k2_launches, shipped = phase_rawwav_shipped(
         dev, rng, bundle, codes, signature, model_gpu, model_cpu,
         data_mean, data_std)
     k6_read("phase 7")
+    k7_read("phase 7")
     k3_read("phase 7")
     phase_wall("phase 7")
 
     # -- phase 8: the same at precision="default" (bfloat16 K2) -----------
+    K7.launches = 0
     k2_launches += phase_rawwav_default(dev, shipped, model_gpu, data_mean,
                                         data_std)
+    k7_read("phase 8")
     k3_read("phase 8")
     phase_wall("phase 8")
 
     # -- phase 9: raw-wav serving, wavvq preset -----------------------------
-    K5.launches = 0
+    K5.launches = K7.launches = 0
     k1_launches += phase_rawwav_wavvq(dev, rng, serving, db, cfg)
     k5_read("phase 9")
+    k7_read("phase 9")
     k3_read("phase 9")
     phase_wall("phase 9")
 
     # -- phase 10: generate CLI ----------------------------------------------
-    K6.launches = 0
+    K6.launches = K7.launches = 0
     phase_generate(rng, bundle, codes, signature, shipped["feats_db"],
                    shipped["enc_cpu"], model_cpu)
     k6_read("phase 10")
+    k7_read("phase 10")
     k3_read("phase 10")
     phase_wall("phase 10")
 
     # -- phase 11: batched serving ------------------------------------------
-    K6.launches = 0
+    K6.launches = K7.launches = 0
     k1, k2, staged = phase_batch(dev, rng, serving, db, cfg, shipped,
                                  model_gpu, data_mean, data_std)
     k6_read("phase 11")
     k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
+    k7_read("phase 11")
     k3_read("phase 11")
     phase_wall("phase 11")
 
     # -- phase 12: streaming pools and sessions -----------------------------
-    K6.launches = 0
+    K6.launches = K7.launches = 0
     k1, k2 = phase_streaming(dev, serving, staged)
     k6_read("phase 12")
     k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
+    k7_read("phase 12")
     k3_read("phase 12")
     phase_wall("phase 12")
 
     # -- phase 13: the shipped preset at precision="high" --------------------
+    K7.launches = 0
     k2_launches += phase_high(dev, shipped, model_gpu, data_mean, data_std)
+    k7_read("phase 13")
     k3_read("phase 13")
     phase_wall("phase 13")
 
     # -- phase 14: transcript -> MiniLM -> context ingress ------------------
-    K6.launches = 0
+    K6.launches = K7.launches = 0
     k2_launches += phase_transcript(dev, rng, shipped, staged["server"])
     k6_read("phase 14")
     del staged
+    k7_read("phase 14")
     k3_read("phase 14")
     phase_wall("phase 14")
 
@@ -6294,6 +6476,7 @@ def main() -> int:
     k2_b8 = k2_times(dev, 8)
     with tempfile.TemporaryDirectory() as tmp:
         K1.launches = K2.launches = K5.launches = K6.launches = 0
+        K7.launches = 0
         built = phase_build(dev, rng, shipped, model_cpu, tmp)
         phase_build_clis(dev, built, shipped["enc_cpu"], tmp)
         k1, k2 = K1.launches, K2.launches
@@ -6306,12 +6489,13 @@ def main() -> int:
     if not (k1 and k2):
         raise SystemExit("phase 15 did not launch both kernels")
     k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
+    k7_read("phase 15")
     k3_read("phase 15")
     phase_wall("phase 15")
 
     # -- phase 16: matching surface and generate extras --------------------
     with tempfile.TemporaryDirectory() as tmp:
-        K1.launches = K2.launches = K6.launches = 0
+        K1.launches = K2.launches = K6.launches = K7.launches = 0
         phase16_tables(dev, shipped, model_gpu, data_mean, data_std)
         k6_read("phase 16")
         phase16_reference_ties(dev, serving, reference, requests, bundle,
@@ -6324,6 +6508,7 @@ def main() -> int:
     if not (k1 and k2):
         raise SystemExit("phase 16 did not launch both kernels")
     k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
+    k7_read("phase 16")
     k3_read("phase 16")
     phase_wall("phase 16")
 
@@ -6331,12 +6516,15 @@ def main() -> int:
     k3_times = phase16b_scan(dev, serving, requests, shipped, smi)
     del shipped
     torch.cuda.empty_cache()
+    log(f"phase 16b K7 launches {K7.launches} (the tables of K3's checks, "
+        f"left out of the kernels line's count)")
+    K7.launches = 0
     k3_read("phase 16b")
     phase_wall("phase 16b")
 
     # -- phase 17: training on the card -> the trained models served -------
     with tempfile.TemporaryDirectory() as tmp:
-        K1.launches = K2.launches = 0
+        K1.launches = K2.launches = K7.launches = 0
         vq_out = phase17_vqvae(dev, rng, tmp, built["pipeline"])
         torch.cuda.empty_cache()
         pae_card = phase17_pae(dev, tmp)
@@ -6352,11 +6540,12 @@ def main() -> int:
         k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
         del pae_card
         torch.cuda.empty_cache()
+        k7_read("phase 17")
         k3_read("phase 17")
         phase_wall("phase 17")
 
         # -- phase 18: resync training, evaluation, raw-pose search --------
-        K1.launches = K2.launches = K5.launches = 0
+        K1.launches = K2.launches = K5.launches = K7.launches = 0
         phase18_rawpose(dev, rng, built, tmp)
         data, fake = phase18_resync_data(built, tmp)
         resync_dir = phase18_train_resync(dev, data, tmp)
@@ -6373,11 +6562,12 @@ def main() -> int:
             raise SystemExit("phase 18 did not launch K1")
         k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
         torch.cuda.empty_cache()
+        k7_read("phase 18")
         k3_read("phase 18")
         phase_wall("phase 18")
 
         # -- phase 19: the rest of the single-GPU surface ------------------
-        K1.launches = K2.launches = 0
+        K1.launches = K2.launches = K7.launches = 0
         phase19_vqvae_steps(dev, rng)
         torch.cuda.empty_cache()
         codes19, sig19, _ = phase19_vqvae_serve(dev, built, tmp)
@@ -6393,32 +6583,38 @@ def main() -> int:
             raise SystemExit("phase 19 did not launch K1")
         k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
     del built
+    k7_read("phase 19")
     k3_read("phase 19")
     phase_wall("phase 19")
 
     # -- phase 20: process groups: sharded serving, data-parallel training -
     with tempfile.TemporaryDirectory() as tmp:
-        k1, k2, k3 = phase20(dev, rng, tmp, model_cpu, data_mean, data_std)
+        k1, k2, k3, k7 = phase20(dev, rng, tmp, model_cpu, data_mean,
+                                 data_std)
     log(f"phase 20 launches (in the groups' ranks): K1 {k1}, K2 {k2}, K3 "
-        f"{k3}")
+        f"{k3}, K7 {k7}")
     if not (k1 and k2 and k3):
         raise SystemExit("phase 20 did not launch K1, K2 and K3")
     k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
+    K7.launches = 0     # this process's single-device references
+    k7_read("phase 20", k7)
     k3_read("phase 20", elsewhere=k3)
     phase_wall("phase 20")
 
     # -- phase 21: the port's bench ------------------------------------------
     K5.launches = 0
-    bench_line, k1, k2 = phase21_bench(kind)
+    bench_line, k1, k2, k7 = phase21_bench(kind)
     k5_read("phase 21")
+    k7_read("phase 21", k7)
     k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
     k3_read("phase 21")
     phase_wall("phase 21")
 
     # -- phase 22: the port's examples ---------------------------------------
     K6.launches = 0
-    k1, k2 = phase22_examples("cuda", smi)
+    k1, k2, k7 = phase22_examples("cuda", smi)
     k6_read("phase 22")
+    k7_read("phase 22", k7)
     k1_launches, k2_launches = k1_launches + k1, k2_launches + k2
     k3_read("phase 22")
     phase_wall("phase 22")
@@ -6471,6 +6667,14 @@ def main() -> int:
         "replaces": "none: XLA's conv in qpgesture_tpu/models/wavlm.py:288-295",
         "launches": k6_launches,
         **k6_line,
+    }, {
+        "name": "segmin",
+        "route": "cuda",
+        "source": "qpgesture_tpu_torch/csrc/segmin.cu",
+        "replaces": "none: jax.ops.segment_min in "
+                    "qpgesture_tpu/match/engine.py:89-109",
+        "launches": k7_launches,
+        **k7_line,
     }, {
         "name": "nobias_flash_attention",
         "route": "cuda",

@@ -9,7 +9,7 @@ matches a whole clip in two phases:
     (sequence, block) database positions — one float32 matmul for cosine
     modes, the CUDA edit-distance kernel (ops/levenshtein_cuda.py) for the
     wavvq mode — followed by a per-code segment-min (the 512-slot candidate
-    tables).
+    tables; on the card the kernel of ops/segmin_cuda.py).
   phase 2 (sequential): the fusion scan over steps carrying (prev_code,
     prev_phase). Candidate selection for every (step, prev_code) is
     tabulated first; each step then reads its selection, runs the phase
@@ -34,10 +34,13 @@ import torch
 
 from ..core.config import MatchConfig
 from ..device import DeviceLike, resolve_device, to_device
-from ..ops import fusion_scan_cuda
+from ..ops import fusion_scan_cuda, segmin_cuda
 from ..ops.levenshtein_cuda import levenshtein_matrix
 from ..ops.precision import mm_nt_f32, split_bf16
 from ..ops.ranking import rank, rank_np, tree_sum
+# the per-code candidate reduction: kernel K7 on the card, its plain
+# version on the CPU
+from ..ops.segmin_cuda import segment_min_argmin
 from ..parallel import dist
 from ..utils.profiling import count, span
 from .database import MatchDatabase
@@ -84,34 +87,6 @@ def cosine_distance_prenorm(q: torch.Tensor, dn) -> torch.Tensor:
     else:
         sim = mm_nt_f32(qn.to(dn.dtype), dn)
     return 1.0 - sim
-
-
-def segment_min_argmin(dist: torch.Tensor, seg: torch.Tensor, k: int,
-                       unmatched: float
-                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per-code candidate reduction.
-
-    dist: (Q, N) distances; seg: (N,) int64 code of each database position.
-    Returns (Q, k) min distance per code (``unmatched`` where a code never
-    occurs), (Q, k) the *first* argmin position in scan order — the
-    reference's strict-< update order (GestureKNN.py:686-689) — and (Q, k)
-    whether the code occurs at all.
-    """
-    Q, N = dist.shape
-    idx = seg.expand(Q, N)
-    mins = torch.full((Q, k), float("inf"), dtype=dist.dtype,
-                      device=dist.device).scatter_reduce(
-        1, idx, dist, "amin", include_self=False)
-    hit = dist == mins.gather(1, idx)
-    pos = torch.where(hit, torch.arange(N, device=dist.device).expand(Q, N),
-                      N)
-    args = torch.full((Q, k), N, dtype=torch.int64,
-                      device=dist.device).scatter_reduce(
-        1, idx, pos, "amin", include_self=False)
-    matched = torch.isfinite(mins)
-    mins = torch.where(matched, mins, torch.full_like(mins, unmatched))
-    args = torch.where(args >= N, 0, args)
-    return mins, args, matched
 
 
 @dataclass
@@ -352,16 +327,17 @@ def string_distance_matrix(q: torch.Tensor,
                            feat: torch.Tensor) -> torch.Tensor:
     """wavvq edit-distance dispatch: q (Q, L) with feat (N, ..., L) for
     'combine' mode, or q (Q, G, L) with feat (..., G, L) for 'sum' mode
-    (per-group distances summed, GestureKNN.py:63-66). Returns (Q, N) f32."""
+    (per-group distances summed, GestureKNN.py:63-66). Returns (Q, N)
+    int32, K1's matrix as it is: the reduction takes it with no float32
+    copy (small integers, exact in float32)."""
     if q.dim() == 3:  # 'sum' mode
         G = q.shape[1]
         flat_db = feat.reshape(-1, G, feat.shape[-1])
         total = _edit_distances(q[:, 0], flat_db[:, 0])
         for g in range(1, G):
             total = total + _edit_distances(q[:, g], flat_db[:, g])
-        return total.to(torch.float32)
-    return _edit_distances(
-        q, feat.reshape(-1, feat.shape[-1])).to(torch.float32)
+        return total
+    return _edit_distances(q, feat.reshape(-1, feat.shape[-1]))
 
 
 def _minargs_one_side(cfg: MatchConfig, q, feat, codes, is_strings: bool):
@@ -745,11 +721,16 @@ class CodeKNNEngine:
         device, or (sharded) over this rank's shard, combined across the
         group into the same tables on every rank."""
         with span("tables"):
+            before = segmin_cuda.launches
             if not sharded:
-                return _tables_impl(self.cfg, self.devdb, ta, tc)
-            from ..parallel.sharded_match import build_sharded_tables
-            return build_sharded_tables(self.cfg, self.sharded_db(group), ta,
-                                        tc, group)
+                tables = _tables_impl(self.cfg, self.devdb, ta, tc)
+            else:
+                from ..parallel.sharded_match import build_sharded_tables
+                tables = build_sharded_tables(self.cfg, self.sharded_db(group),
+                                              ta, tc, group)
+            if segmin_cuda.launches != before:   # K7 calls, two launches each
+                count("segmin_kernel", (segmin_cuda.launches - before) // 2)
+            return tables
 
     def scan(self, tables: DeviceTables, n_steps: int, clips: int,
              rand_bits, resets):

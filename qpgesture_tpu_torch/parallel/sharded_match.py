@@ -106,15 +106,17 @@ def shard_minargs(cfg: MatchConfig, q: torch.Tensor, side: ShardSide,
                   is_strings: bool):
     """One rank's per-code reduction of its shard: (mins (Q, K) with inf
     where unmatched, global flat argmins (Q, K) with 2**30 where
-    unmatched). Padded rows never match."""
+    unmatched). Only the shard's real rows are scored: padded rows never
+    match."""
+    n = side.n_valid * side.codes.shape[1]
     if is_strings:
-        d = string_distance_matrix(q, side.feat)
+        d = string_distance_matrix(q, side.feat[:side.n_valid])
+    elif isinstance(side.feat, tuple):      # the bf16 split (hi, lo)
+        d = cosine_distance_prenorm(q, tuple(f[:n] for f in side.feat))
     else:
-        d = cosine_distance_prenorm(q, side.feat)
-    B = side.codes.shape[1]
-    d[:, side.n_valid * B:] = float("inf")
+        d = cosine_distance_prenorm(q, side.feat[:n])
     mins, args, matched = segment_min_argmin(
-        d, side.codes.reshape(-1), cfg.codebook_size, cfg.unmatched_dist)
+        d, side.codes.reshape(-1)[:n], cfg.codebook_size, cfg.unmatched_dist)
     return (torch.where(matched, mins, torch.full_like(mins, float("inf"))),
             torch.where(matched, args + side.offset,
                         torch.full_like(args, _BIG)))

@@ -19,9 +19,12 @@ from qpgesture_tpu_torch.match import engine as eng
 from qpgesture_tpu_torch.match.engine import CodeKNNEngine
 from qpgesture_tpu_torch.ops import (flash_attention_cuda, fusion_scan_cuda,
                                      groupnorm_cuda, levenshtein_cuda,
-                                     posconv_cuda, relkey_attention_cuda)
+                                     posconv_cuda, relkey_attention_cuda,
+                                     segmin_cuda)
+from qpgesture_tpu_torch.utils import profiling
 
 import scan_cases
+import test_torch_segmin as segmin_cases
 from fixtures import make_fixture
 
 pytestmark = pytest.mark.gpu
@@ -469,6 +472,119 @@ def test_wavlm_highest_on_card_runs_k6(cuda):
     assert posconv_cuda.launches == before + 1
     assert prof.take()[0]["counters"]["posconv_kernel"] == 1
     assert float((got.cpu() - cpu(wav)).abs().max()) <= 2e-4
+
+
+# K7 against its plain version, bit for bit: mins compared as int32 bits
+# (a -0.0 found first stays -0.0), args and matched exactly.
+def _segmin_on_card(cuda, dist, seg, k, want=None):
+    before = segmin_cuda.launches
+    got = segmin_cuda.segment_min_argmin(dist.to(cuda), seg.to(cuda), k,
+                                         segmin_cases.UNMATCHED)
+    torch.cuda.synchronize()
+    assert segmin_cuda.launches == before + 2
+    if want is None:
+        want = segmin_cuda.segment_min_argmin_plain(
+            dist.cpu(), seg.cpu(), k, segmin_cases.UNMATCHED)
+    mins, args, matched = (g.cpu() for g in got)
+    assert mins.dtype == torch.float32 and args.dtype == torch.int64
+    assert torch.equal(matched, want[2].cpu())
+    assert torch.equal(args, want[1].cpu())
+    assert torch.equal(mins.view(torch.int32), want[0].cpu().view(torch.int32))
+    return got
+
+
+@pytest.mark.parametrize("name", segmin_cases.CASES)
+def test_segmin_kernel_matches_plain(cuda, name):
+    """tests/test_torch_segmin.py's cases: ties, negative distances and
+    both zeros, codes that never occur, ragged N (the scalar path), Q = 1,
+    48 and 768, int32."""
+    dist, seg, k = segmin_cases._case(
+        name, np.random.RandomState(segmin_cases.CASES.index(name)))
+    _segmin_on_card(cuda, torch.from_numpy(dist), torch.from_numpy(seg), k)
+
+
+def test_segmin_kernel_keeps_non_finite_cases(cuda):
+    inf, nan = float("inf"), float("nan")
+    dist = torch.tensor([[1.0, inf, inf, -inf, 2.0, nan, 0.5, inf]])
+    seg = torch.tensor([0, 1, 1, 2, 2, 3, 3, 5])
+    mins, args, matched = _segmin_on_card(cuda, dist, seg, 6)
+    assert args.tolist() == [[0, 1, 3, 0, 0, 7]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_segmin_kernel_tie_across_the_split(cuda, dtype):
+    """Equal least distances of one code on both sides of each boundary of
+    the N split: the first position wins whichever block saw it."""
+    Q, N, k = 48, 26624, 512
+    splits, chunk = segmin_cuda.plan(
+        Q, N, *segmin_cuda._resident(cuda, k, int(dtype == torch.int32)))
+    assert splits > 2
+    g = torch.Generator().manual_seed(5)
+    dist = (torch.randint(10, 20, (Q, N), generator=g)).to(dtype)
+    seg = torch.randint(0, k, (N,), generator=g)
+    for b in range(1, splits):
+        edge = b * chunk
+        seg[edge - 1] = seg[edge] = seg[edge + 1] = b
+        dist[:, edge - 1: edge + 2] = 3
+        dist[::2, edge - 1] = 4          # even rows: the tie starts at edge
+    mins, args, _ = _segmin_on_card(cuda, dist, seg, k)
+    for b in range(1, splits):
+        assert args[1, b].item() == b * chunk - 1
+        assert args[0, b].item() == b * chunk
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("Q", [48, 768])
+def test_segmin_kernel_at_the_vq_cells_shapes(cuda, Q, dtype):
+    """The vq-wav2vec clip's and batch's queries against 425 984 positions
+    and 512 codes: cosine-like float32 distances (some below 0) or K1-like
+    int32 edit distances, against the plain version on the card; the same
+    bits a second time."""
+    N, k = 425984, 512
+    g = torch.Generator(device=cuda).manual_seed(Q)
+    if dtype == torch.float32:
+        dist = 1.0 - torch.rand(Q, N, generator=g, device=cuda) * 1.0001
+    else:
+        dist = torch.randint(0, 23, (Q, N), generator=g, device=cuda,
+                             dtype=torch.int32)
+    seg = torch.randint(0, k, (N,), generator=g, device=cuda)
+    want = segmin_cuda.segment_min_argmin_plain(dist, seg, k,
+                                                segmin_cases.UNMATCHED)
+    got = _segmin_on_card(cuda, dist, seg, k, want)
+    again = segmin_cuda.segment_min_argmin(dist, seg, k,
+                                           segmin_cases.UNMATCHED)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_wavvq_clip_and_batch_on_card_run_k7(cuda):
+    """A wavvq clip (predict) and a batch of 3 clips (predict_batch) on the
+    card give the CPU port's codes, with the tables span's counter
+    ``segmin_kernel`` 2 (both sides) for each unit."""
+    rng = np.random.RandomState(14)
+    fx = make_fixture(rng, n_seq=6, n_test=3, codebook=64)
+    cfg = dataclasses.replace(MATCH_PRESETS["wavvq"], codebook_size=64)
+    db = stage_database(cfg, fx["bundle"], fx["codes"], fx["signature"],
+                        wavvq=fx["wavvq"])
+    ta = stage_test_audio(cfg, db, wavvq=fx["test_wavvq"])
+    tc = stage_test_context(db, fx["test_context"])
+    cpu = CodeKNNEngine(cfg, db, device="cpu")
+    card = CodeKNNEngine(cfg, db, device=cuda)
+    clips_a, clips_c = np.stack([ta] * 3), np.stack([tc] * 3)
+    init = np.array([3, 17, 40])
+    with profiling.recording() as prof:
+        got = card.predict(ta, tc, rng=np.random.RandomState(1))
+        got_b = card.predict_batch(clips_a, clips_c, init_codes=init,
+                                   rng=np.random.RandomState(2))
+    want = cpu.predict(ta, tc, rng=np.random.RandomState(1))
+    want_b = cpu.predict_batch(clips_a, clips_c, init_codes=init,
+                               rng=np.random.RandomState(2))
+    np.testing.assert_array_equal(got.codes, want.codes)
+    for g_, w_ in zip(got_b, want_b):
+        np.testing.assert_array_equal(g_.codes, w_.codes)
+    tables = [r for r in prof.take() if r["name"] == "tables"]
+    assert len(tables) == 2
+    assert [r["counters"]["segmin_kernel"] for r in tables] == [2, 2]
 
 
 def test_flash_attention_kernel_takes_unaligned_bias(cuda):
